@@ -1,0 +1,295 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA card.
+
+Run from the root of the repository:  python3 chip_smoke.py
+
+Phases, each printing one JSON line (and raising, so the script exits
+non-zero, on any failure):
+  1. build: compile the hand-written kernels (csrc/*.cu) with nvcc, one
+     process per source, and print the card's name and power limit;
+  2. main path: the port's FusionPipeline on the slice that
+     dynamicfuion_python_tpu_torch/apps/profile_frame.py defines (synthetic
+     bending plane at 480x640, focal 672, the DeepDeform sensor resolution;
+     default Parameters with rigid odometry off, mesh capacity 65536, block
+     table 4096 and 2048 active blocks so the scene fits), frame 0 + 5 fitted
+     frames; every GN iteration must go through both kernels;
+  3. kernels: each kernel against its plain PyTorch version at the shapes
+     the main path gave it, timed with CUDA events beside its bound;
+  4. reference: a small 3-frame scene through the kernels on the card and
+     through the plain versions on the CPU must agree.
+The last line is {"ok": true, "device": {...}}. Without a CUDA device the
+script exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and FP32 outside the
+# tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
+# FP32 adds/subtracts/multiplies/divides the rasterizer's function needs.
+# Per (pixel, face) test: the pixel relative to the 3 corners (6), 3 edge
+# functions on those and the face's edge vectors (3 x 3), 3 barycentric
+# divisions (3), 3 point-segment distances (3 x 11: dot 3, divide 1, offset 4,
+# squared length 3). Once per face: 3 edge vectors (6), the area (3), 3
+# squared edge lengths (9), 3 perspective reciprocals (3). Comparisons,
+# min/max and the work of hits only are not counted: the bound is a lower one
+RASTER_OPS_PER_TEST = 51
+RASTER_OPS_PER_FACE = 21
+# per face of the expansion: 3 corners x (2 divisions, 2 multiplies, 2 adds)
+EXPAND_OPS_PER_FACE = 18
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond, message: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {message}")
+
+
+def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_build():
+    import torch
+
+    from dynamicfuion_python_tpu_torch.apps.profile_frame import use_fp32_matmuls
+    from dynamicfuion_python_tpu_torch.ops import native
+
+    use_fp32_matmuls()
+    t0 = time.perf_counter()
+    reports = native.build_kernels()
+    build_s = time.perf_counter() - t0
+    # ptxas resource lines: registers, shared memory, spills per kernel
+    ptxas = {
+        name: [ln.split("info    :")[-1].strip() for ln in log.splitlines() if "Used" in ln or "spill" in ln]
+        for name, log in reports.items()
+    }
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    emit({
+        "phase": "build", "seconds": build_s, "kernels": sorted(native.KERNELS),
+        "built_now": sorted(reports), "ptxas": ptxas, "nvidia_smi": smi,
+        "torch": torch.__version__, "cuda": torch.version.cuda,
+    })
+    return smi
+
+
+def phase_main_path():
+    import torch
+
+    from dynamicfuion_python_tpu_torch.apps.fusion_pipeline import FusionPipeline
+    from dynamicfuion_python_tpu_torch.apps.profile_frame import make_slice
+    from dynamicfuion_python_tpu_torch.ops import native
+
+    params, seq = make_slice(frame_count=6)
+    frames = list(seq)
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launch_counts()
+    pipe = FusionPipeline(params, seq.intrinsics)  # the default device: the card
+    t0 = time.perf_counter()
+    pipe.initialize(frames[0].depth, frames[0].color)
+    torch.cuda.synchronize()
+    emit({
+        "phase": "main_path", "frame": 0, "wall_s": time.perf_counter() - t0,
+        "nodes": pipe.warp_field.num_nodes, "layers": list(pipe.warp_field.layer_node_counts),
+        "triangles": pipe.canonical_triangle_count, "vertices": pipe._count_host[0],
+    })
+    per_frame = []
+    for f in frames[1:]:
+        t0 = time.perf_counter()
+        m = pipe.process_frame(f.depth, f.color)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        occupied = int(pipe.volume.occupied_count())
+        row = {
+            "phase": "main_path", "frame": f.index, "wall_s": wall,
+            "data_loss": m["data_loss"], "arap_loss": m["arap_loss"],
+            "valid_solve": m["valid_solve"], "active_blocks": m["active_blocks"],
+            "max_active_blocks": params.tsdf.max_active_blocks,
+            "occupied_blocks": occupied, "block_capacity": pipe.volume.capacity,
+            "dropped_bin_entries": m["dropped_bin_entries"],
+            "dropped_large_faces": m["dropped_large_faces"],
+            "pixel_cap_kept_fraction": m["pixel_cap_kept_fraction"],
+            "triangles": pipe.canonical_triangle_count, "vertices": pipe._count_host[0],
+            "nodes": pipe.warp_field.num_nodes,
+            "peak_mem_mib": torch.cuda.max_memory_allocated() / 2**20,
+        }
+        emit(row)
+        per_frame.append(row)
+    launches = dict(native.launch_counts)
+    for row in per_frame:
+        check(all(row["valid_solve"]), f"frame {row['frame']}: a GN solve was invalid")
+        check(row["data_loss"][-1] < row["data_loss"][0], f"frame {row['frame']}: data loss did not fall")
+        check(0 < row["active_blocks"] <= row["max_active_blocks"],
+              f"frame {row['frame']}: active blocks {row['active_blocks']} outside (0, max_active_blocks]")
+        check(row["occupied_blocks"] < row["block_capacity"], f"frame {row['frame']}: block table full")
+        check(not any(row["dropped_bin_entries"]) and not any(row["dropped_large_faces"]),
+              f"frame {row['frame']}: rasterizer overflow")
+    for name in native.KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched on the main path")
+    verts = pipe.canonical_vertices
+    check(bool(torch.isfinite(verts).all()) and bool(torch.isfinite(pipe.warp_field.node_translations).all()),
+          "non-finite canonical mesh or node translations")
+    emit({
+        "phase": "main_path", "summary": True, "launches": launches, "fitted_frames": len(per_frame),
+        "mean_frame_s": sum(r["wall_s"] for r in per_frame) / len(per_frame),
+        "peak_mem_mib": torch.cuda.max_memory_allocated() / 2**20,
+    })
+    return pipe, launches, len(per_frame), seq.image_size
+
+
+def phase_kernels(pipe, launches, fitted_frames, image_size):
+    import torch
+
+    from dynamicfuion_python_tpu_torch.ops import mesh_expand as me
+    from dynamicfuion_python_tpu_torch.ops import rasterize as rz
+
+    cfg = pipe.fitter_config
+    verts = pipe.canonical_vertices.contiguous()
+    tris = pipe.canonical_triangles.contiguous()
+    k = pipe.intrinsics.contiguous()
+    h, w = image_size
+
+    # B2 on the canonical mesh of the last frame
+    fv, valid = me.expand_project_faces_cuda(verts, tris, k, 1e-3, cfg.max_depth)
+    pfv, pvalid = me.expand_project_faces_plain(verts, tris, k, 1e-3, cfg.max_depth)
+    torch.cuda.synchronize()
+    check(torch.equal(valid, pvalid), "mesh_expand: clip mask differs from the plain version")
+    b2_err = float((fv - pfv).abs().max())
+    check(b2_err == 0.0, f"mesh_expand: not bit-equal to the plain version (max err {b2_err})")
+    n_faces, n_verts = tris.shape[0], verts.shape[0]
+    b2_ms = cuda_time_ms(lambda: me.expand_project_faces_cuda(verts, tris, k, 1e-3, cfg.max_depth), 200)
+    b2_plain = cuda_time_ms(lambda: me.expand_project_faces_plain(verts, tris, k, 1e-3, cfg.max_depth), 50)
+    b2_bytes = n_verts * 12 + n_faces * 12 + 36 + n_faces * 36 + n_faces
+    b2_bound = max(b2_bytes / PEAK_BYTES_PER_S, n_faces * EXPAND_OPS_PER_FACE / PEAK_FP32_PER_S) * 1e3
+
+    # B1 on that frame's binned table
+    bins = rz.bin_faces(fv, valid, (h, w), tile_size=cfg.tile_size, max_faces_per_bin=cfg.max_faces_per_bin)
+    faces9 = torch.where(valid[:, None, None], fv, -1e9).reshape(-1, 9).contiguous()
+    args = (faces9, bins.table, cfg.tile_size, bins.tiles_w)
+    got = rz.rasterize_tiles_cuda(*args)
+    want = rz.rasterize_tiles_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], want[0]), "rasterize_tiles: face ids differ from the plain version")
+    b1_err = max(float((g - x).abs().max()) for g, x in zip(got[1:], want[1:]))
+    check(b1_err <= 1e-5, f"rasterize_tiles: max abs err {b1_err} > 1e-5")
+    b1_ms = cuda_time_ms(lambda: rz.rasterize_tiles_cuda(*args), 100)
+    b1_plain = cuda_time_ms(lambda: rz.rasterize_tiles_plain(*args), 5, warmup=1)
+    entries = int((bins.table >= 0).sum())
+    px = cfg.tile_size * cfg.tile_size
+    t_count, k_cap = bins.table.shape
+    b1_bytes = faces9.numel() * 4 + bins.table.numel() * 4 + t_count * px * (4 + 4 + 12 + 4)
+    b1_ops = entries * (px * RASTER_OPS_PER_TEST + RASTER_OPS_PER_FACE)
+    b1_bound = max(b1_bytes / PEAK_BYTES_PER_S, b1_ops / PEAK_FP32_PER_S) * 1e3
+    emit({
+        "phase": "kernels", "faces": n_faces, "vertices": n_verts, "tiles": t_count,
+        "bin_capacity": k_cap, "bin_entries": entries, "mean_bin_occupancy": entries / t_count,
+        "max_bin_occupancy": int((bins.table >= 0).sum(1).max()),
+        "visible_pixels": int((got[0] >= 0).sum()),
+    })
+    kernels = [
+        {
+            "name": "rasterize_tiles", "route": "cuda",
+            "source": "dynamicfuion_python_tpu_torch/csrc/rasterize_tiles.cu",
+            "replaces": "dynamicfuion_python_tpu/ops/pallas/rasterize_tiles.py:185",
+            "launches": launches["rasterize_tiles"],
+            "launches_per_frame": launches["rasterize_tiles"] / fitted_frames,
+            "max_abs_err": b1_err, "ms": b1_ms, "kernel_ms": b1_ms, "plain_ms": b1_plain,
+            "bound_ms": b1_bound,
+            "bound_by": "bytes" if b1_bytes / PEAK_BYTES_PER_S > b1_ops / PEAK_FP32_PER_S else "operations",
+            "library_ms": None,
+        },
+        {
+            "name": "mesh_expand", "route": "cuda",
+            "source": "dynamicfuion_python_tpu_torch/csrc/mesh_expand.cu",
+            "replaces": "dynamicfuion_python_tpu/ops/pallas/mesh_expand.py:178",
+            "launches": launches["mesh_expand"],
+            "launches_per_frame": launches["mesh_expand"] / fitted_frames,
+            "max_abs_err": b2_err, "ms": b2_ms, "kernel_ms": b2_ms, "plain_ms": b2_plain,
+            "bound_ms": b2_bound,
+            "bound_by": "bytes" if b2_bytes / PEAK_BYTES_PER_S > n_faces * EXPAND_OPS_PER_FACE / PEAK_FP32_PER_S else "operations",
+            "library_ms": None,
+        },
+    ]
+    emit({"kernels": kernels})
+
+
+def phase_reference():
+    """A small scene through the kernels on the card and through the plain
+    versions on the CPU: the same losses, validity and block counts."""
+    import dataclasses
+
+    from dynamicfuion_python_tpu_torch.apps.fusion_pipeline import FusionPipeline
+    from dynamicfuion_python_tpu_torch.data.frame_sequence import SyntheticBendingPlaneSequence
+    from dynamicfuion_python_tpu_torch.settings import Parameters
+    from dynamicfuion_python_tpu_torch.utils.config import apply_overrides
+
+    params = apply_overrides(Parameters(), [
+        "tsdf.voxel_size=0.01", "tsdf.sdf_truncation_distance=0.04", "tsdf.initial_block_count=512",
+        "graph.node_coverage=0.12", "graph.layer_count=2", "graph.erosion_num_iterations=1",
+        "alignment.max_iteration_count=2", "alignment.arap_term_weight=20.0",
+        "alignment.use_rigid_alignment=false", "fusion.far_clip_distance=2.0",
+        "fusion.extraction_max_triangles=60000", "fusion.mesh_capacity_hint=65536",
+    ])
+    seq = SyntheticBendingPlaneSequence(frame_count=3, image_size=(64, 96), bend_per_frame=0.02, focal=120.0)
+    frames = list(seq)
+    out = {}
+    for device in ("cuda", "cpu"):
+        pipe = FusionPipeline(params, seq.intrinsics, device=device)
+        pipe.fitter_config = dataclasses.replace(pipe.fitter_config, max_faces_per_bin=1024)
+        pipe.initialize(frames[0].depth, frames[0].color)
+        out[device] = [pipe.process_frame(f.depth, f.color) for f in frames[1:]]
+    worst = 0.0
+    for g, c in zip(out["cuda"], out["cpu"]):
+        check(g["valid_solve"] == c["valid_solve"], "reference: valid_solve differs card vs CPU")
+        check(g["active_blocks"] == c["active_blocks"], "reference: active blocks differ card vs CPU")
+        for a, b in zip(g["data_loss"] + g["arap_loss"], c["data_loss"] + c["arap_loss"]):
+            worst = max(worst, abs(a - b) / max(abs(b), 1e-12))
+    # f32 sums in another order on the card (atomics in index_add_)
+    check(worst < 1e-2, f"reference: losses differ card vs CPU by {worst:.3g} relative")
+    emit({"phase": "reference", "max_rel_loss_diff": worst, "frames": len(out["cuda"])})
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    phase_build()
+    pipe, launches, fitted, image_size = phase_main_path()
+    phase_kernels(pipe, launches, fitted, image_size)
+    phase_reference()
+    emit({
+        "ok": True,
+        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},
+    })
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,135 @@
+"""Where a frame's time goes: the 480x640 bending-plane slice on the card,
+one frame traced with ``torch.profiler``.
+
+    python -m dynamicfuion_python_tpu_torch.apps.profile_frame [--frames N] [--out DIR]
+
+Defines the slice (:func:`make_slice`), which chip_smoke.py's main path runs
+too. Warms up on the first frames, then runs the last frame twice from the
+same state: untraced on a copy of the pipeline (its wall time), and traced.
+Prints one JSON line: both wall times, the summed device time of the traced
+frame's kernels, the device's idle share of the untraced frame (and of the
+traced one, which the profiler's host overhead inflates), the hand-written
+kernels' device time per launch, and the operators with the most device
+time. ``--out`` also receives the Chrome trace.
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+from dynamicfuion_python_tpu_torch.apps.fusion_pipeline import FusionPipeline
+from dynamicfuion_python_tpu_torch.data.frame_sequence import SyntheticBendingPlaneSequence
+from dynamicfuion_python_tpu_torch.settings import Parameters
+from dynamicfuion_python_tpu_torch.utils.config import apply_overrides
+
+# default Parameters() with rigid odometry off (not ported; the scene's camera
+# is static) and the fitter's mesh bucket at 65536 triangles; the default
+# 2048-block table fills by frame 2 of this scene and more than the default
+# 1024 blocks intersect the band from frame 1 (see PERF.md), so both are
+# sized up and no block is dropped
+SLICE_OVERRIDES = (
+    "alignment.use_rigid_alignment=false",
+    "fusion.mesh_capacity_hint=65536",
+    "tsdf.initial_block_count=4096",
+    "tsdf.max_active_blocks=2048",
+)
+# the DeepDeform sensor resolution; focal min(size) * 1.4, as the CLI sets it
+SLICE_IMAGE_SIZE = (480, 640)
+SLICE_FOCAL = 672.0
+HAND_KERNELS = ("rasterize_tiles_kernel", "mesh_expand_kernel")
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def use_fp32_matmuls() -> None:
+    """Turn TF32 off, so the card's matrix products round as FP32 ones do."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def make_slice(frame_count: int):
+    """The slice's ``Parameters`` and bending-plane sequence."""
+    params = apply_overrides(Parameters(), list(SLICE_OVERRIDES))
+    seq = SyntheticBendingPlaneSequence(frame_count=frame_count, image_size=SLICE_IMAGE_SIZE, focal=SLICE_FOCAL)
+    return params, seq
+
+
+def _timed_frame(pipe, frame):
+    t0 = time.perf_counter()
+    metrics = pipe.process_frame(frame.depth, frame.color)
+    torch.cuda.synchronize()
+    return metrics, time.perf_counter() - t0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--frames", type=int, default=4, help="warm-up frames before the traced one")
+    ap.add_argument("--out", type=Path, default=None, help="directory for the Chrome trace")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_frame: needs a CUDA card")
+    use_fp32_matmuls()
+    params, seq = make_slice(args.frames + 2)
+    frames = list(seq)
+    pipe = FusionPipeline(params, seq.intrinsics)
+    pipe.initialize(frames[0].depth, frames[0].color)
+    for f in frames[1:-1]:
+        pipe.process_frame(f.depth, f.color)
+    torch.cuda.synchronize()
+    # the same frame from the same state, untraced: the profiler's own host
+    # cost stretches the traced frame's wall time
+    _, untraced_s = _timed_frame(copy.deepcopy(pipe), frames[-1])
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        metrics, wall_s = _timed_frame(pipe, frames[-1])
+    events = prof.key_averages()
+    rows = sorted(
+        ({"name": e.key, "device_ms": _device_us(e) / 1e3, "calls": e.count} for e in events),
+        key=lambda r: -r["device_ms"],
+    )
+    kernel_rows = [r for r in rows if r["device_ms"] > 0]
+    # device busy time: kernel rows only (operator rows double-count them)
+    busy_ms = sum(
+        _device_us(e) for e in events if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+    ) / 1e3
+    hand = {
+        k: {"device_ms_per_launch": r["device_ms"] / max(r["calls"], 1), "launches": r["calls"]}
+        for k in HAND_KERNELS
+        for r in rows
+        if k in r["name"]
+    }
+    if args.out is not None:
+        args.out.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(args.out / "frame_trace.json"))
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0),
+        "nvidia_smi": subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        ).stdout.strip(),
+        "frame_wall_ms": untraced_s * 1e3,
+        "traced_frame_wall_ms": wall_s * 1e3,
+        "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / (untraced_s * 1e3),
+        "traced_device_idle_share": 1.0 - busy_ms / (wall_s * 1e3),
+        "gn_iterations": len(metrics["data_loss"]),
+        "hand_kernels": hand,
+        "top_device_ops": kernel_rows[:25],
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

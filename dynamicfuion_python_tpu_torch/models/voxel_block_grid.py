@@ -1,0 +1,425 @@
+"""Sparse voxel-block TSDF volume with rigid and non-rigid integration (port
+of ``dynamicfuion_python_tpu/models/voxel_block_grid.py``).
+
+A static-capacity block table (packed int32 keys per slot + a sorted key
+index, see ``ops/voxel_block_hash.py``) holds per-block tsdf / weight / color
+voxels. Activation is sort + compaction into free slots; integration runs
+over all occupied blocks (rigid) or a padded active-block list (non-rigid,
+through the warp field); extraction is marching cubes over blocks with +1
+halos stitched from neighbor blocks, then welding on a 1e-6 m grid.
+
+Ray casting and the marching-tetrahedra extractor are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from dynamicfuion_python_tpu_torch.ops import voxel_block_hash as vbh
+from dynamicfuion_python_tpu_torch.ops.camera import project_points, unproject_depth_image
+from dynamicfuion_python_tpu_torch.ops.compaction import compact_mask_indices
+from dynamicfuion_python_tpu_torch.ops.marching_cubes import marching_cubes
+from dynamicfuion_python_tpu_torch.ops.warp import blend_warp
+from dynamicfuion_python_tpu_torch.utils.device import resolve_device
+
+
+def _cube_offsets(values, dtype, device) -> torch.Tensor:
+    return torch.tensor(
+        [[a, b, c] for a in values for b in values for c in values], dtype=dtype, device=device
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class VoxelBlockGrid:
+    """Static-capacity sparse TSDF volume (canonical frame)."""
+
+    slot_keys: torch.Tensor  # int32[Cap] packed block coords; EMPTY_KEY = free
+    sorted_keys: torch.Tensor  # int32[Cap]
+    slot_of_sorted: torch.Tensor  # int32[Cap]
+    tsdf: torch.Tensor  # f32[Cap, R, R, R]
+    weight: torch.Tensor  # f32[Cap, R, R, R]
+    color: torch.Tensor  # f32[Cap, R, R, R, 3]
+    voxel_size: float = 0.004
+    block_resolution: int = 8
+    sdf_truncation_distance: float = 0.02
+    depth_scale: float = 1000.0
+    depth_max: float = 3.0
+
+    @classmethod
+    def create(
+        cls,
+        capacity: int = 2048,
+        voxel_size: float = 0.004,
+        block_resolution: int = 8,
+        sdf_truncation_distance: float = 0.02,
+        depth_scale: float = 1000.0,
+        depth_max: float = 3.0,
+        device: str | torch.device | None = None,
+    ) -> "VoxelBlockGrid":
+        """An empty volume on ``device`` (the CUDA card unless the caller
+        passes ``device="cpu"``)."""
+        dev = resolve_device(device)
+        r = block_resolution
+        keys = torch.full((capacity,), vbh.EMPTY_KEY, dtype=torch.int32, device=dev)
+        return cls(
+            slot_keys=keys,
+            sorted_keys=keys.clone(),
+            slot_of_sorted=torch.arange(capacity, dtype=torch.int32, device=dev),
+            tsdf=torch.zeros((capacity, r, r, r), dtype=torch.float32, device=dev),
+            weight=torch.zeros((capacity, r, r, r), dtype=torch.float32, device=dev),
+            color=torch.zeros((capacity, r, r, r, 3), dtype=torch.float32, device=dev),
+            voxel_size=float(voxel_size),
+            block_resolution=int(block_resolution),
+            sdf_truncation_distance=float(sdf_truncation_distance),
+            depth_scale=float(depth_scale),
+            depth_max=float(depth_max),
+        )
+
+    @property
+    def capacity(self) -> int:
+        return self.slot_keys.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.slot_keys.device
+
+    def replace(self, **changes) -> "VoxelBlockGrid":
+        return dataclasses.replace(self, **changes)
+
+    def occupied_mask(self) -> torch.Tensor:
+        return self.slot_keys != vbh.EMPTY_KEY
+
+    def occupied_count(self) -> torch.Tensor:
+        return torch.sum(self.occupied_mask())
+
+    def block_side(self) -> float:
+        return self.block_resolution * self.voxel_size
+
+    # -- block discovery & activation ----------------------------------------
+
+    def compute_unique_block_coordinates(self, depth, intrinsics, stride: int = 4) -> torch.Tensor:
+        """Packed keys of the 27 blocks around each strided valid pixel's
+        surface point (cube of half-size = truncation), deduplicated and
+        padded with EMPTY_KEY."""
+        points, mask = unproject_depth_image(depth, intrinsics, self.depth_scale, self.depth_max)
+        points = points[::stride, ::stride].reshape(-1, 3)
+        mask = mask[::stride, ::stride].reshape(-1)
+        trunc = self.sdf_truncation_distance
+        offsets = _cube_offsets((-trunc, 0.0, trunc), torch.float32, self.device)
+        cand = points[:, None, :] + offsets[None, :, :]
+        blocks = torch.floor(cand / self.block_side()).to(torch.int32)
+        keys = vbh.pack_block_keys(blocks).reshape(-1)
+        keys = torch.where(mask.repeat_interleave(27), keys, vbh.EMPTY_KEY)
+        unique, _ = vbh.unique_keys_padded(keys)
+        return unique
+
+    def activate(self, candidate_keys: torch.Tensor) -> "VoxelBlockGrid":
+        """Insert novel blocks into free slots (ascending slot order, keys
+        ascending); candidates beyond capacity are dropped."""
+        unique, _ = vbh.unique_keys_padded(candidate_keys)
+        _, found = vbh.lookup(self.sorted_keys, self.slot_of_sorted, unique)
+        novel = torch.where((unique != vbh.EMPTY_KEY) & ~found, unique, vbh.EMPTY_KEY)
+        novel_sorted = torch.sort(novel).values
+        n_novel = torch.sum(novel_sorted != vbh.EMPTY_KEY)
+        free = self.slot_keys == vbh.EMPTY_KEY
+        free_rank = torch.cumsum(free.to(torch.int64), 0) - 1
+        take = free & (free_rank < n_novel)
+        assigned = novel_sorted[torch.clamp(free_rank, 0, self.capacity - 1)]
+        new_slot_keys = torch.where(take, assigned, self.slot_keys)
+        sorted_keys, slot_of_sorted = vbh.build_sorted_index(new_slot_keys)
+        return self.replace(
+            slot_keys=new_slot_keys, sorted_keys=sorted_keys, slot_of_sorted=slot_of_sorted
+        )
+
+    def find_block_slots(self, keys: torch.Tensor):
+        return vbh.lookup(self.sorted_keys, self.slot_of_sorted, keys)
+
+    def block_coordinates(self) -> torch.Tensor:
+        """int32[Cap, 3] block coords (garbage where unoccupied)."""
+        return vbh.unpack_block_keys(self.slot_keys)
+
+    def _voxel_world_positions(self, slots: torch.Tensor) -> torch.Tensor:
+        """f32[S, R, R, R, 3] world positions of voxel centers."""
+        r = self.block_resolution
+        coords = vbh.unpack_block_keys(self.slot_keys[slots])
+        ar = torch.arange(r, dtype=torch.int32, device=self.device)
+        local = torch.stack(torch.meshgrid(ar, ar, ar, indexing="ij"), dim=-1)
+        global_voxels = (coords[:, None, None, None, :] * r + local[None]).to(torch.float32)
+        return global_voxels * self.voxel_size
+
+    # -- integration ------------------------------------------------------------
+
+    def integrate(self, depth, intrinsics, color=None) -> "VoxelBlockGrid":
+        """Rigid TSDF fusion over all occupied blocks (psdf = depth - z,
+        normalized by truncation, running weighted average)."""
+        slots = torch.arange(self.capacity, device=self.device)
+        return self._integrate_impl(
+            slots, self.occupied_mask(), depth, intrinsics, color, warp=None
+        )
+
+    def integrate_non_rigid(
+        self, block_slots, block_slots_valid, warp_field, depth, intrinsics,
+        color=None, normals=None,
+    ) -> "VoxelBlockGrid":
+        """Non-rigid fusion through the warp field over the given block list;
+        ``normals`` f32[H, W, 3] rejects oblique readings (cosine <= 0.5).
+        The camera is the canonical one (rigid odometry is not ported)."""
+        return self._integrate_impl(
+            block_slots, block_slots_valid, depth, intrinsics, color,
+            warp=warp_field, normals=normals,
+        )
+
+    def _integrate_impl(
+        self, slots, slots_valid, depth, intrinsics, color, warp, normals=None
+    ) -> "VoxelBlockGrid":
+        r = self.block_resolution
+        h, w = depth.shape
+        trunc = self.sdf_truncation_distance
+        slots = slots.long()
+        cam = self._voxel_world_positions(slots).reshape(-1, 3)
+        if warp is not None:
+            anchors, weights, anchor_valid = warp.compute_anchors(cam)
+            warped = blend_warp(
+                cam, warp.node_positions, warp.node_rotations, warp.node_translations,
+                anchors, weights,
+            )
+        else:
+            anchor_valid = torch.ones(cam.shape[:1], dtype=torch.bool, device=self.device)
+            warped = cam
+
+        uv, in_front = project_points(warped, intrinsics)
+        u = torch.round(uv[..., 0]).to(torch.int64)
+        v = torch.round(uv[..., 1]).to(torch.int64)
+        in_bounds = (u >= 0) & (u < w) & (v >= 0) & (v < h)
+        pix = torch.clamp(v, 0, h - 1) * w + torch.clamp(u, 0, w - 1)
+        d = depth.to(torch.float32).reshape(-1)[pix] / self.depth_scale
+        depth_ok = (d > 0.0) & (d <= self.depth_max)
+        psdf = d - warped[..., 2]
+        update = anchor_valid & in_front & in_bounds & depth_ok & (psdf > -trunc)
+        if normals is not None and warp is not None:
+            view_dir = -warped / torch.clamp(
+                torch.linalg.norm(warped, dim=-1, keepdim=True), min=1e-12
+            )
+            cosine = torch.sum(view_dir * normals.reshape(-1, 3)[pix], dim=-1)
+            # reject oblique readings (camera-facing normals: head-on = +1)
+            update = update & (cosine > 0.5)
+        tsdf_new = torch.clamp(psdf, max=trunc) / trunc
+
+        shape_blocks = (slots.shape[0], r, r, r)
+        update = update.reshape(shape_blocks) & slots_valid[:, None, None, None]
+        tsdf_new = tsdf_new.reshape(shape_blocks)
+        old_tsdf = self.tsdf[slots]
+        old_weight = self.weight[slots]
+        inv_w = 1.0 / (old_weight + 1.0)
+        merged_tsdf = torch.where(update, (old_weight * old_tsdf + tsdf_new) * inv_w, old_tsdf)
+        merged_weight = torch.where(update, old_weight + 1.0, old_weight)
+
+        # padded list entries (slots_valid False) write nothing: they are
+        # routed to a row past the table that is dropped
+        dest = torch.where(slots_valid, slots, self.capacity)
+
+        def scatter(table, values):
+            out = torch.cat([table, table[:1]])
+            out[dest] = values
+            return out[: self.capacity]
+
+        new_color = self.color
+        if color is not None:
+            sampled = color.reshape(-1, 3)[pix].reshape(*shape_blocks, 3)
+            old_color = self.color[slots]
+            merged_color = torch.where(
+                update[..., None],
+                (old_weight[..., None] * old_color + sampled) * inv_w[..., None],
+                old_color,
+            )
+            new_color = scatter(self.color, merged_color)
+        return self.replace(
+            tsdf=scatter(self.tsdf, merged_tsdf),
+            weight=scatter(self.weight, merged_weight),
+            color=new_color,
+        )
+
+    # -- block / truncation-region tests ----------------------------------------
+
+    def find_blocks_intersecting_truncation_region(
+        self, depth, warp_field, intrinsics, downsample: int = 16
+    ) -> torch.Tensor:
+        """bool[Cap]: occupied blocks whose warped extent may intersect the
+        depth frame's truncation band (warp the 8 block corners, compare the
+        AABB against the depth range behind its pixel footprint +- trunc)."""
+        side = self.block_side()
+        dev = self.device
+        coords = self.block_coordinates().to(torch.float32)
+        corner_offsets = _cube_offsets((0, 1), torch.float32, dev)
+        corners = (coords[:, None, :] + corner_offsets[None]) * side
+        flat = corners.reshape(-1, 3)
+        anchors, weights, _ = warp_field.compute_anchors(flat)
+        warped = blend_warp(
+            flat, warp_field.node_positions, warp_field.node_rotations,
+            warp_field.node_translations, anchors, weights,
+        )
+        warped = warped.reshape(-1, 8, 3)
+        uv, in_front = project_points(warped.reshape(-1, 3), intrinsics)
+        uv = uv.reshape(-1, 8, 2)
+        in_front = in_front.reshape(-1, 8)
+        zmin = torch.amin(warped[..., 2], dim=1)
+        zmax = torch.amax(warped[..., 2], dim=1)
+
+        h, w = depth.shape
+        d = depth.to(torch.float32) / self.depth_scale
+        valid = (d > 0) & (d <= self.depth_max)
+        hp = (h + downsample - 1) // downsample * downsample
+        wp = (w + downsample - 1) // downsample * downsample
+        dmin_full = torch.full((hp, wp), torch.inf, device=dev)
+        dmin_full[:h, :w] = torch.where(valid, d, torch.inf)
+        dmax_full = torch.zeros((hp, wp), device=dev)
+        dmax_full[:h, :w] = torch.where(valid, d, 0.0)
+        ch, cw = hp // downsample, wp // downsample
+        dmin = dmin_full.reshape(ch, downsample, cw, downsample).amin(dim=(1, 3))
+        dmax = dmax_full.reshape(ch, downsample, cw, downsample).amax(dim=(1, 3))
+
+        u0 = torch.clamp(torch.amin(uv[..., 0], dim=1) / downsample, 0, cw - 1)
+        u1 = torch.clamp(torch.amax(uv[..., 0], dim=1) / downsample, 0, cw - 1)
+        v0 = torch.clamp(torch.amin(uv[..., 1], dim=1) / downsample, 0, ch - 1)
+        v1 = torch.clamp(torch.amax(uv[..., 1], dim=1) / downsample, 0, ch - 1)
+        ts = torch.linspace(0.0, 1.0, 4, device=dev)
+        gu = (u0[:, None] + (u1 - u0)[:, None] * ts[None]).to(torch.int64)
+        gv = (v0[:, None] + (v1 - v0)[:, None] * ts[None]).to(torch.int64)
+        cell_min = dmin[gv[:, :, None], gu[:, None, :]].amin(dim=(1, 2))
+        cell_max = dmax[gv[:, :, None], gu[:, None, :]].amax(dim=(1, 2))
+
+        trunc = self.sdf_truncation_distance
+        overlap = (zmin - trunc <= cell_max) & (zmax + trunc >= cell_min)
+        on_screen = torch.any(in_front, dim=1) & (cell_max > 0)
+        return self.occupied_mask() & overlap & on_screen
+
+    def activate_sleeve_blocks(self, intersecting_mask: torch.Tensor) -> "VoxelBlockGrid":
+        """Allocate the 26-neighborhood of flagged blocks."""
+        neighbor_offsets = _cube_offsets((-1, 0, 1), torch.int32, self.device)
+        cand = self.block_coordinates()[:, None, :] + neighbor_offsets[None]
+        keys = vbh.pack_block_keys(cand).reshape(-1)
+        keys = torch.where(intersecting_mask.repeat_interleave(27), keys, vbh.EMPTY_KEY)
+        return self.activate(keys)
+
+    # -- extraction -------------------------------------------------------------
+
+    def _stitched_volumes(self, weight_threshold: float = 0.0):
+        """Per-block [R+1]^3 tsdf + validity with +1 halos from the 7
+        positive-direction neighbor blocks; voxels below ``weight_threshold``
+        (or with zero weight when it is 0) are invalid."""
+        r = self.block_resolution
+        cap = self.capacity
+        dev = self.device
+        coords = self.block_coordinates()
+        thr = max(float(weight_threshold), 0.0)
+
+        def weight_ok(wgt):
+            return wgt >= thr if thr > 0 else wgt > 0
+
+        tsdf_p = torch.zeros((cap, r + 1, r + 1, r + 1), dtype=torch.float32, device=dev)
+        valid_p = torch.zeros((cap, r + 1, r + 1, r + 1), dtype=torch.bool, device=dev)
+        tsdf_p[:, :r, :r, :r] = self.tsdf
+        valid_p[:, :r, :r, :r] = weight_ok(self.weight)
+
+        def neighbor_data(offset):
+            keys = vbh.pack_block_keys(coords + torch.tensor(offset, dtype=torch.int32, device=dev))
+            slots, found = self.find_block_slots(keys)
+            slots = slots.long()
+            return self.tsdf[slots], weight_ok(self.weight[slots]) & found[:, None, None, None]
+
+        nt, nv = neighbor_data([1, 0, 0])
+        tsdf_p[:, r, :r, :r] = nt[:, 0]
+        valid_p[:, r, :r, :r] = nv[:, 0]
+        nt, nv = neighbor_data([0, 1, 0])
+        tsdf_p[:, :r, r, :r] = nt[:, :, 0]
+        valid_p[:, :r, r, :r] = nv[:, :, 0]
+        nt, nv = neighbor_data([0, 0, 1])
+        tsdf_p[:, :r, :r, r] = nt[:, :, :, 0]
+        valid_p[:, :r, :r, r] = nv[:, :, :, 0]
+        nt, nv = neighbor_data([1, 1, 0])
+        tsdf_p[:, r, r, :r] = nt[:, 0, 0, :r]
+        valid_p[:, r, r, :r] = nv[:, 0, 0, :r]
+        nt, nv = neighbor_data([1, 0, 1])
+        tsdf_p[:, r, :r, r] = nt[:, 0, :r, 0]
+        valid_p[:, r, :r, r] = nv[:, 0, :r, 0]
+        nt, nv = neighbor_data([0, 1, 1])
+        tsdf_p[:, :r, r, r] = nt[:, :r, 0, 0]
+        valid_p[:, :r, r, r] = nv[:, :r, 0, 0]
+        nt, nv = neighbor_data([1, 1, 1])
+        tsdf_p[:, r, r, r] = nt[:, 0, 0, 0]
+        valid_p[:, r, r, r] = nv[:, 0, 0, 0]
+        valid_p = valid_p & self.occupied_mask()[:, None, None, None]
+        return tsdf_p, valid_p
+
+    def extract_triangle_soup(self, max_triangles: int = 200_000, weight_threshold: float = 0.0):
+        """Marching-cubes triangle soup f32[max_triangles, 3, 3] + count."""
+        tsdf_p, valid_p = self._stitched_volumes(weight_threshold)
+        origins = self.block_coordinates().to(torch.float32) * self.block_side()
+        return marching_cubes(tsdf_p, valid_p, origins, self.voxel_size, max_triangles)
+
+    def extract_triangle_mesh(
+        self, max_triangles: int = 200_000, max_vertices: int | None = None,
+        weight_threshold: float = 0.0,
+    ):
+        """Welded mesh: soup vertices quantized to a 1e-6 m grid and
+        deduplicated (``torch.unique`` sorts lexicographically, as the JAX
+        package's fixed-size ``jnp.unique`` does).
+
+        Returns vertices f32[max_vertices, 3] (0-padded), faces
+        int32[max_triangles, 3], vertex_count, triangle_count.
+        """
+        if max_vertices is None:
+            max_vertices = max_triangles * 3 // 2 + 2
+        soup, tri_count = self.extract_triangle_soup(max_triangles, weight_threshold)
+        verts = soup.reshape(-1, 3)
+        tri_valid = torch.arange(max_triangles, device=self.device) < tri_count
+        sentinel = 2**31 - 1
+        q = torch.round(verts / 1e-6).to(torch.int32)
+        q = torch.where(tri_valid.repeat_interleave(3)[:, None], q, sentinel)
+        uq, inv = torch.unique(q, dim=0, return_inverse=True)
+        # fixed size max_vertices + 1, padded with the sentinel row (which
+        # sorts last); ids past the size clamp to the last row
+        size = max_vertices + 1
+        inv = torch.clamp(inv, max=size - 1)
+        vertex_count = torch.sum(torch.any(uq[:size] != sentinel, dim=1))
+        # duplicates keep the LAST soup vertex, as the JAX scatter does
+        last = torch.full((size,), -1, dtype=torch.int64, device=self.device)
+        last.scatter_reduce_(0, inv, torch.arange(inv.shape[0], device=self.device), "amax")
+        vertices = torch.where((last >= 0)[:, None], verts[last.clamp(min=0)], 0.0)
+        faces = inv.reshape(max_triangles, 3).to(torch.int32)
+        return vertices[:max_vertices], faces, vertex_count, tri_count
+
+
+def extract_mesh_fitter_arrays(volume: VoxelBlockGrid, v_cap: int, t_cap: int, weight_threshold: float):
+    """Welded canonical mesh padded into the fitter's static-capacity arrays.
+
+    Returns (vertices f32[v_cap, 3], faces int32[t_cap, 3], vertex_count,
+    triangle_count). Slot ``v_cap - 1`` is the reserved padding vertex at the
+    origin (z = 0, culled by the near plane); padded, weld-overflow and
+    degenerate (repeated-index) faces are dropped and the rest compacted to
+    the front.
+    """
+    dev = volume.device
+    verts, faces, v_count, t_count = volume.extract_triangle_mesh(
+        max_triangles=t_cap, max_vertices=v_cap - 1, weight_threshold=weight_threshold
+    )
+    vr = torch.arange(v_cap - 1, device=dev)
+    verts = torch.where((vr < v_count)[:, None], verts, 0.0)
+    vertices = torch.cat([verts, torch.zeros((1, 3), dtype=verts.dtype, device=dev)])
+    tri_valid = torch.arange(t_cap, device=dev) < t_count
+    faces = torch.clamp(faces, 0, v_cap - 1)
+    overflow = faces >= torch.clamp(v_count, max=v_cap - 1)
+    faces = torch.where(tri_valid[:, None] & ~overflow, faces, v_cap - 1)
+    degenerate = (
+        (faces[:, 0] == faces[:, 1]) | (faces[:, 1] == faces[:, 2]) | (faces[:, 0] == faces[:, 2])
+    )
+    keep = tri_valid & ~degenerate
+    keep_ids, kept_count = compact_mask_indices(keep, t_cap, fill_value=t_cap)
+    faces = torch.where(
+        (torch.arange(t_cap, device=dev) < kept_count)[:, None],
+        faces[torch.clamp(keep_ids, max=t_cap - 1)],
+        v_cap - 1,
+    ).to(torch.int32)
+    return vertices, faces, v_count, kept_count

@@ -1,0 +1,114 @@
+"""Indexed mesh -> pixel-space face vertices + clip mask (kernel B2).
+
+Port of the Pallas TPU kernel ``_expand_project``
+(``dynamicfuion_python_tpu/ops/pallas/mesh_expand.py``), whose function is
+``extract_face_vertices`` of the JAX rasterizer. The TPU kernel worked in
+min-vertex-id face order (an ``ExpansionPlan``) to avoid XLA's per-row gather
+cost; on the card faces keep the caller's order, so the permutation back is
+the identity.
+
+:func:`expand_project_faces` launches the CUDA kernel (``csrc/mesh_expand.cu``)
+for CUDA tensors and runs :func:`expand_project_faces_plain`, the same math
+in plain PyTorch, for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from dynamicfuion_python_tpu_torch.ops import native
+
+_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_int,  # verts, num_verts
+    ctypes.c_void_p, ctypes.c_int,  # tris, num_faces
+    ctypes.c_void_p, ctypes.c_float, ctypes.c_float,  # intrinsics, near, far
+    ctypes.c_void_p, ctypes.c_void_p,  # out, valid
+    ctypes.c_void_p,  # stream
+]
+
+
+def expand_project_faces_plain(
+    vertices: torch.Tensor,
+    triangles: torch.Tensor,
+    intrinsics: torch.Tensor,
+    near: float = 0.05,
+    far: float = 10.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """vertices f32[V, 3], triangles int[F, 3] -> (face vertices f32[F, 3, 3]
+    as (u, v, z) per corner, valid bool[F]); a face is valid when all three
+    corners lie strictly between ``near`` and ``far``."""
+    fx, fy = intrinsics[0, 0], intrinsics[1, 1]
+    cx, cy = intrinsics[0, 2], intrinsics[1, 2]
+    f = triangles.shape[0]
+    tri = triangles.long().clamp(0, vertices.shape[0] - 1)
+    cols = []
+    valid = None
+    for i in range(3):
+        vi = vertices[tri[:, i]]
+        z = vi[:, 2]
+        ok = (z > near) & (z < far)
+        valid = ok if valid is None else (valid & ok)
+        safe_z = torch.where(torch.abs(z) > 1e-9, z, 1e-9)
+        cols.append(vi[:, 0] / safe_z * fx + cx)
+        cols.append(vi[:, 1] / safe_z * fy + cy)
+        cols.append(z)
+    return torch.stack(cols, dim=-1).reshape(f, 3, 3), valid
+
+
+def expand_project_faces_cuda(
+    vertices: torch.Tensor,
+    triangles: torch.Tensor,
+    intrinsics: torch.Tensor,
+    near: float = 0.05,
+    far: float = 10.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA kernel on card tensors; same contract as the plain version."""
+    dev = vertices.device
+    if vertices.dtype != torch.float32 or vertices.ndim != 2 or vertices.shape[1] != 3:
+        raise ValueError(f"vertices must be f32[V, 3], got {vertices.dtype}{list(vertices.shape)}")
+    if triangles.dtype != torch.int32 or triangles.ndim != 2 or triangles.shape[1] != 3:
+        raise ValueError(f"triangles must be int32[F, 3], got {triangles.dtype}{list(triangles.shape)}")
+    if intrinsics.dtype != torch.float32 or tuple(intrinsics.shape) != (3, 3):
+        raise ValueError("intrinsics must be f32[3, 3]")
+    for name, t in (("vertices", vertices), ("triangles", triangles), ("intrinsics", intrinsics)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, vertices on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if vertices.shape[0] == 0:
+        raise ValueError("vertices must not be empty")
+    f = triangles.shape[0]
+    out = torch.empty((f, 3, 3), dtype=torch.float32, device=dev)
+    valid = torch.empty((f,), dtype=torch.bool, device=dev)
+    status = native.entry_point("mesh_expand", _ARGTYPES)(
+        vertices.data_ptr(), vertices.shape[0],
+        triangles.data_ptr(), f,
+        intrinsics.data_ptr(), float(near), float(far),
+        out.data_ptr(), valid.data_ptr(),
+        native.stream_handle(dev),
+    )
+    native.check(status, "mesh_expand")
+    native.launch_counts["mesh_expand"] += 1
+    return out, valid
+
+
+def expand_project_faces(
+    vertices: torch.Tensor,
+    triangles: torch.Tensor,
+    intrinsics: torch.Tensor,
+    near: float = 0.05,
+    far: float = 10.0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Indexed mesh -> (face vertices f32[F, 3, 3], valid bool[F],
+    sorted_to_original int64[F]) in the caller's face order, so the last
+    is the identity. CUDA tensors go to the kernel; CPU tensors to the plain
+    version."""
+    if vertices.device.type == "cuda":
+        fv, valid = expand_project_faces_cuda(vertices, triangles, intrinsics, near, far)
+    elif vertices.device.type == "cpu":
+        fv, valid = expand_project_faces_plain(vertices, triangles, intrinsics, near, far)
+    else:
+        raise ValueError(f"unsupported device {vertices.device}")
+    return fv, valid, torch.arange(triangles.shape[0], device=vertices.device)

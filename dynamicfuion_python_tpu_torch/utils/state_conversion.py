@@ -1,0 +1,82 @@
+"""Carry warp-field and TSDF-volume state between the JAX package and the
+port.
+
+The state is a dict of numpy arrays: the JAX objects' pytree leaves plus
+their static fields, under the dataclass field names. This system has no
+learned weights on the fusion path, so the warp field and the volume are its
+parameters; the tests use these converters to start the port's fitter and
+integrator from the exact state the JAX package holds. Enum fields travel as
+their name. Nothing here imports JAX: the caller builds the dict, e.g.
+``{f.name: np.asarray(getattr(obj, f.name)) for f in dataclasses.fields(obj)}``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from dynamicfuion_python_tpu_torch.models.voxel_block_grid import VoxelBlockGrid
+from dynamicfuion_python_tpu_torch.models.warp_field import (
+    HierarchicalGraphWarpField,
+    NodeCoverageMethod,
+)
+from dynamicfuion_python_tpu_torch.utils.device import resolve_device
+
+_INT_FIELDS = {"virtual_node_indices", "edges", "slot_keys", "sorted_keys", "slot_of_sorted"}
+
+
+def _from_numpy(cls, state: dict, device):
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in state:
+            continue
+        value = state[f.name]
+        if f.name == "coverage_method":
+            kwargs[f.name] = NodeCoverageMethod[getattr(value, "name", value)]
+        elif f.name in ("layer_node_counts",):
+            kwargs[f.name] = tuple(int(x) for x in np.asarray(value).reshape(-1))
+        elif f.name in ("layer_decimation_radii",):
+            kwargs[f.name] = tuple(float(x) for x in np.asarray(value).reshape(-1))
+        elif isinstance(value, np.ndarray) and value.ndim > 0:
+            dtype = torch.int32 if f.name in _INT_FIELDS else None
+            if f.name == "edge_layer_indices":
+                dtype = torch.int8
+            kwargs[f.name] = torch.as_tensor(np.array(value), dtype=dtype, device=device)
+        else:
+            kwargs[f.name] = type(f.default)(np.asarray(value).item()) if f.default is not dataclasses.MISSING else value
+    return cls(**kwargs)
+
+
+def _to_numpy(obj) -> dict:
+    out = {}
+    for f in dataclasses.fields(obj):
+        value = getattr(obj, f.name)
+        if isinstance(value, torch.Tensor):
+            out[f.name] = value.detach().cpu().numpy()
+        elif isinstance(value, NodeCoverageMethod):
+            out[f.name] = value.name
+        else:
+            out[f.name] = value
+    return out
+
+
+def warp_field_from_numpy(state: dict, device: str | torch.device | None = None) -> HierarchicalGraphWarpField:
+    """A ``HierarchicalGraphWarpField`` on ``device`` (the CUDA card unless
+    the caller passes ``device="cpu"``) from its arrays + static fields."""
+    return _from_numpy(HierarchicalGraphWarpField, state, resolve_device(device))
+
+
+def warp_field_to_numpy(field: HierarchicalGraphWarpField) -> dict:
+    return _to_numpy(field)
+
+
+def voxel_block_grid_from_numpy(state: dict, device: str | torch.device | None = None) -> VoxelBlockGrid:
+    """A ``VoxelBlockGrid`` on ``device`` (the CUDA card unless the caller
+    passes ``device="cpu"``) from its arrays + static fields."""
+    return _from_numpy(VoxelBlockGrid, state, resolve_device(device))
+
+
+def voxel_block_grid_to_numpy(volume: VoxelBlockGrid) -> dict:
+    return _to_numpy(volume)

@@ -1,0 +1,127 @@
+"""PyTorch port vs JAX package: one Gauss-Newton step and a whole
+fit_to_image from the same converted warp field and canonical mesh on a small
+hierarchical scene (the first bending-plane frame's extracted mesh and
+graph, fitted to the second frame)."""
+
+import dataclasses
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+import dynamicfuion_python_tpu.models.fitter as JF
+import dynamicfuion_python_tpu_torch.models.fitter as PF
+from dynamicfuion_python_tpu.apps.fusion_pipeline import FusionPipeline, _observed_points_program
+from dynamicfuion_python_tpu.data.frame_sequence import SyntheticBendingPlaneSequence
+from dynamicfuion_python_tpu.models.voxel_block_grid import extract_mesh_fitter_arrays
+from dynamicfuion_python_tpu.ops.linalg import solve_block_sparse_arrowhead as j_solve
+from dynamicfuion_python_tpu.ops.normals import mesh_vertex_normals as j_normals
+from dynamicfuion_python_tpu.settings import Parameters
+from dynamicfuion_python_tpu.utils.config import apply_overrides
+from dynamicfuion_python_tpu_torch.ops.normals import mesh_vertex_normals as p_normals
+from dynamicfuion_python_tpu_torch.utils.state_conversion import warp_field_from_numpy
+
+OVERRIDES = [
+    "tsdf.voxel_size=0.01",
+    "tsdf.sdf_truncation_distance=0.04",
+    "tsdf.initial_block_count=512",
+    "graph.node_coverage=0.12",
+    "graph.layer_count=2",
+    "graph.erosion_num_iterations=1",
+    "alignment.use_rigid_alignment=false",
+    "fusion.far_clip_distance=2.0",
+]
+
+
+def _state(obj) -> dict:
+    return {f.name: (np.array(v) if hasattr(v, "shape") else v) for f in dataclasses.fields(obj) for v in [getattr(obj, f.name)]}
+
+
+def _t(x):
+    return torch.as_tensor(np.array(x))
+
+
+@pytest.fixture(scope="module")
+def scene():
+    seq = SyntheticBendingPlaneSequence(frame_count=2, image_size=(64, 96), bend_per_frame=0.02, focal=120.0)
+    frames = list(seq)
+    pipe = FusionPipeline(apply_overrides(Parameters(), OVERRIDES), seq.intrinsics)
+    pipe.initialize(frames[0].depth, frames[0].color)
+    # 32768-face bucket: rasterize_splat's default tier caps then hold every
+    # face of this ~1 px-per-face mesh (smaller buckets drop faces there)
+    verts, faces, _, _ = extract_mesh_fitter_arrays(pipe.volume, 8192, 32768, 0.0)
+    points, mask = _observed_points_program(jnp.asarray(frames[1].depth), pipe.intrinsics, jnp.eye(4), 1000.0, 2.0, False)
+    jcfg = JF.FitterConfig(max_iterations=3, arap_term_weight=20.0)
+    # ~1 px faces: a 16x16 tile holds ~400 of them
+    pcfg = PF.FitterConfig(max_iterations=3, arap_term_weight=20.0, max_faces_per_bin=1024)
+    jf = pipe.warp_field
+    return dict(
+        jf=jf, pf=warp_field_from_numpy(_state(jf), device="cpu"), verts=verts, faces=faces, points=points,
+        mask=mask, k=pipe.intrinsics, jcfg=jcfg, pcfg=pcfg,
+    )
+
+
+def test_one_gauss_newton_step(scene, monkeypatch):
+    s = scene
+    jf, pf = s["jf"], s["pf"]
+    jpre = JF.precompute_face_associations(jf, s["verts"], s["faces"])
+    ppre = PF.precompute_face_associations(pf, _t(s["verts"]), _t(s["faces"]))
+    for a, b in zip(jpre, ppre):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=1e-6)
+    jn = j_normals(s["verts"], s["faces"])
+    pn = p_normals(_t(s["verts"]), _t(s["faces"]))
+    np.testing.assert_allclose(pn.numpy(), np.asarray(jn), atol=1e-6)
+    mode_j, mode_p = JF.IterationMode.ALL, PF.IterationMode.ALL
+    # the JAX step does not return its solver's escalation count and corner
+    # damping: a callback traced into the step records them
+    solves = []
+
+    def recording_solve(*args, **kwargs):
+        out = j_solve(*args, **kwargs)
+        jax.debug.callback(lambda e, m: solves.append((int(e), float(m))), out[1], out[2])
+        return out
+
+    monkeypatch.setattr(JF, "solve_block_sparse_arrowhead", recording_solve)
+    step = jax.jit(JF._gauss_newton_step_impl, static_argnames=("config", "mode", "max_deg"))
+    jout = step(jf, s["verts"], s["faces"], jn, jpre, s["points"], s["mask"], s["k"], s["jcfg"], mode_j, JF._max_wing_degree(jf))
+    pout = PF.gauss_newton_step(pf, _t(s["verts"]), _t(s["faces"]), pn, ppre, _t(s["points"]), _t(s["mask"]), _t(s["k"]), s["pcfg"], mode_p, PF._max_wing_degree(pf))
+    jax.block_until_ready(jout)
+    jax.effects_barrier()
+    assert solves == [(int(pout.escalations), float(pout.corner_damping))]
+    assert bool(pout.valid_solve) == bool(jout[3]) is True
+    np.testing.assert_allclose(float(pout.data_loss), float(jout[1]), rtol=1e-4)
+    np.testing.assert_allclose(float(pout.arap_loss), float(jout[2]), rtol=1e-4, atol=1e-12)
+    np.testing.assert_allclose(pout.field.node_translations.numpy(), np.asarray(jout[0].node_translations), atol=1e-5)
+    np.testing.assert_allclose(pout.field.node_rotations.numpy(), np.asarray(jout[0].node_rotations), atol=1e-5)
+    assert int(pout.overflow["dropped_bin_entries"]) == 0
+
+
+def test_fit_to_image(scene):
+    s = scene
+    jfield, jd = JF.fit_to_image(s["jf"], s["verts"], s["faces"], s["points"], s["mask"], s["k"], s["jcfg"])
+    pfield, pd = PF.fit_to_image(s["pf"], s["verts"], s["faces"], s["points"], s["mask"], s["k"], s["pcfg"], device="cpu")
+    np.testing.assert_array_equal(pd["valid_solve"].numpy(), np.asarray(jd["valid_solve"]))
+    assert pd["valid_solve"].all()
+    np.testing.assert_allclose([float(x) for x in pd["data_loss"]], [float(x) for x in jd["data_loss"]], rtol=1e-4)
+    # the ARAP loss also sees the in-plane null direction described below
+    np.testing.assert_allclose([float(x) for x in pd["arap_loss"]], [float(x) for x in jd["arap_loss"]], rtol=1e-3)
+    assert float(pd["data_loss"][-1]) < float(pd["data_loss"][0])
+    jt = np.asarray(jd["node_translations_per_iteration"])
+    pt = pd["node_translations_per_iteration"].numpy()
+    # along the surface normal (z for this fronto-parallel plane) the fits
+    # agree to 1e-5 m; in-plane sliding is a null direction of point-to-plane
+    # residuals held only by the 1e-3 LM damping, where f32 summation-order
+    # noise (index_add_ vs one-hot matmuls) grows ~100x per step in both
+    # packages alike, so x / y get 1e-3 m
+    np.testing.assert_allclose(pt[..., 2], jt[..., 2], atol=1e-5)
+    np.testing.assert_allclose(pt[..., :2], jt[..., :2], atol=1e-3)
+    assert (pd["damping_escalations"] >= 0).all() and (pd["dropped_bin_entries"] == 0).all()
+
+
+def test_other_data_terms_are_refused(scene):
+    s = scene
+    cfg = dataclasses.replace(s["pcfg"], data_term_impl="fast")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PF.fit_to_image(s["pf"], s["verts"], s["faces"], s["points"], s["mask"], s["k"], cfg, device="cpu")
