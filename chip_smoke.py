@@ -13,8 +13,10 @@ non-zero, on any failure):
      default Parameters with rigid odometry off, mesh capacity 65536, block
      table 4096 and 2048 active blocks so the scene fits), frame 0 + 5 fitted
      frames; every GN iteration must go through both kernels;
-  3. kernels: each kernel against its plain PyTorch version at the shapes
-     the main path gave it, timed with CUDA events beside its bound;
+  3. kernels: each kernel against its plain PyTorch version on the inputs
+     of the main path's last launch (the warped mesh of the last frame's
+     last GN iteration), timed with CUDA events and the profiler beside its
+     bound (counted from those inputs) and an empty kernel's launch floor;
   4. reference: a small 3-frame scene through the kernels on the card and
      through the plain versions on the CPU must agree.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
@@ -29,18 +31,10 @@ import sys
 import time
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and FP32 outside the
-# tensor cores
+# tensor cores. Built with --fmad=false, the kernels' FP32 issue ceiling is
+# half the latter, 33.5 T instructions/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
-# FP32 adds/subtracts/multiplies/divides the rasterizer's function needs.
-# Per (pixel, face) test: the pixel relative to the 3 corners (6), 3 edge
-# functions on those and the face's edge vectors (3 x 3), 3 barycentric
-# divisions (3), 3 point-segment distances (3 x 11: dot 3, divide 1, offset 4,
-# squared length 3). Once per face: 3 edge vectors (6), the area (3), 3
-# squared edge lengths (9), 3 perspective reciprocals (3). Comparisons,
-# min/max and the work of hits only are not counted: the bound is a lower one
-RASTER_OPS_PER_TEST = 51
-RASTER_OPS_PER_FACE = 21
 # per face of the expansion: 3 corners x (2 divisions, 2 multiplies, 2 adds)
 EXPAND_OPS_PER_FACE = 18
 
@@ -68,6 +62,47 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms_per_launch(fns: dict, iters: int) -> dict:
+    """Profiler device time per launch of each named kernel, each run
+    ``iters`` times by its function; None where the trace has no device
+    time for it."""
+    import torch
+
+    from dynamicfuion_python_tpu_torch.apps.profile_frame import device_us
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for fn in fns.values():
+            for _ in range(iters):
+                fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    out = {}
+    for name in fns:
+        rows = [e for e in events if name in e.key and device_us(e) > 0]
+        calls = sum(e.count for e in rows)
+        out[name] = sum(device_us(e) for e in rows) / 1e3 / calls if calls else None
+    return out
+
+
+class LastCall:
+    """Replaces ``module.name`` by a function that records the arguments of
+    its last call and calls the original; :meth:`restore` puts it back."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.args, self.kwargs = None, None
+        setattr(module, name, self)
+
+    def __call__(self, *args, **kwargs):
+        self.args, self.kwargs = args, kwargs
+        return self.fn(*args, **kwargs)
+
+    def restore(self) -> None:
+        setattr(self.module, self.name, self.fn)
 
 
 def phase_build():
@@ -103,11 +138,16 @@ def phase_main_path():
 
     from dynamicfuion_python_tpu_torch.apps.fusion_pipeline import FusionPipeline
     from dynamicfuion_python_tpu_torch.apps.profile_frame import make_slice
-    from dynamicfuion_python_tpu_torch.ops import native
+    from dynamicfuion_python_tpu_torch.models import fitter
+    from dynamicfuion_python_tpu_torch.ops import native, rasterize
 
     params, seq = make_slice(frame_count=6)
     frames = list(seq)
     torch.cuda.reset_peak_memory_stats()
+    # the inputs of each kernel's last launch, for phase 3: the fitter's B2
+    # call and rasterize_binned's B1 call
+    last = {"mesh_expand": LastCall(fitter, "expand_project_faces"),
+            "rasterize_tiles": LastCall(rasterize, "rasterize_tiles")}
     native.reset_launch_counts()
     pipe = FusionPipeline(params, seq.intrinsics)  # the default device: the card
     t0 = time.perf_counter()
@@ -141,6 +181,8 @@ def phase_main_path():
         emit(row)
         per_frame.append(row)
     launches = dict(native.launch_counts)
+    for rec in last.values():
+        rec.restore()
     for row in per_frame:
         check(all(row["valid_solve"]), f"frame {row['frame']}: a GN solve was invalid")
         check(row["data_loss"][-1] < row["data_loss"][0], f"frame {row['frame']}: data loss did not fall")
@@ -159,57 +201,62 @@ def phase_main_path():
         "mean_frame_s": sum(r["wall_s"] for r in per_frame) / len(per_frame),
         "peak_mem_mib": torch.cuda.max_memory_allocated() / 2**20,
     })
-    return pipe, launches, len(per_frame), seq.image_size
+    return last, launches, len(per_frame)
 
 
-def phase_kernels(pipe, launches, fitted_frames, image_size):
+def phase_kernels(last, launches, fitted_frames):
     import torch
 
     from dynamicfuion_python_tpu_torch.ops import mesh_expand as me
     from dynamicfuion_python_tpu_torch.ops import rasterize as rz
 
-    cfg = pipe.fitter_config
-    verts = pipe.canonical_vertices.contiguous()
-    tris = pipe.canonical_triangles.contiguous()
-    k = pipe.intrinsics.contiguous()
-    h, w = image_size
-
-    # B2 on the canonical mesh of the last frame
-    fv, valid = me.expand_project_faces_cuda(verts, tris, k, 1e-3, cfg.max_depth)
-    pfv, pvalid = me.expand_project_faces_plain(verts, tris, k, 1e-3, cfg.max_depth)
+    # B2 on the warped mesh of the last GN iteration
+    b2 = last["mesh_expand"]
+    verts, tris, k = b2.args
+    fv, valid = me.expand_project_faces_cuda(*b2.args, **b2.kwargs)
+    pfv, pvalid = me.expand_project_faces_plain(*b2.args, **b2.kwargs)
     torch.cuda.synchronize()
     check(torch.equal(valid, pvalid), "mesh_expand: clip mask differs from the plain version")
     b2_err = float((fv - pfv).abs().max())
     check(b2_err == 0.0, f"mesh_expand: not bit-equal to the plain version (max err {b2_err})")
     n_faces, n_verts = tris.shape[0], verts.shape[0]
-    b2_ms = cuda_time_ms(lambda: me.expand_project_faces_cuda(verts, tris, k, 1e-3, cfg.max_depth), 200)
-    b2_plain = cuda_time_ms(lambda: me.expand_project_faces_plain(verts, tris, k, 1e-3, cfg.max_depth), 50)
+    b2_ms = cuda_time_ms(lambda: me.expand_project_faces_cuda(*b2.args, **b2.kwargs), 200)
+    b2_plain = cuda_time_ms(lambda: me.expand_project_faces_plain(*b2.args, **b2.kwargs), 50)
+    floor_ms = cuda_time_ms(lambda: me.launch_floor(n_faces, verts.device), 200)
     b2_bytes = n_verts * 12 + n_faces * 12 + 36 + n_faces * 36 + n_faces
-    b2_bound = max(b2_bytes / PEAK_BYTES_PER_S, n_faces * EXPAND_OPS_PER_FACE / PEAK_FP32_PER_S) * 1e3
+    b2_ops = n_faces * EXPAND_OPS_PER_FACE
+    b2_bound = max(b2_bytes / PEAK_BYTES_PER_S, b2_ops / PEAK_FP32_PER_S) * 1e3
 
-    # B1 on that frame's binned table
-    bins = rz.bin_faces(fv, valid, (h, w), tile_size=cfg.tile_size, max_faces_per_bin=cfg.max_faces_per_bin)
-    faces9 = torch.where(valid[:, None, None], fv, -1e9).reshape(-1, 9).contiguous()
-    args = (faces9, bins.table, cfg.tile_size, bins.tiles_w)
-    got = rz.rasterize_tiles_cuda(*args)
-    want = rz.rasterize_tiles_plain(*args)
+    # B1 on the same iteration's bins
+    b1 = last["rasterize_tiles"]
+    faces, table, image_size, tile_size = b1.args
+    got = rz.rasterize_tiles_cuda(*b1.args, **b1.kwargs)
+    want = rz.rasterize_tiles_plain(*b1.args, **b1.kwargs)
     torch.cuda.synchronize()
     check(torch.equal(got[0], want[0]), "rasterize_tiles: face ids differ from the plain version")
     b1_err = max(float((g - x).abs().max()) for g, x in zip(got[1:], want[1:]))
     check(b1_err <= 1e-5, f"rasterize_tiles: max abs err {b1_err} > 1e-5")
-    b1_ms = cuda_time_ms(lambda: rz.rasterize_tiles_cuda(*args), 100)
-    b1_plain = cuda_time_ms(lambda: rz.rasterize_tiles_plain(*args), 5, warmup=1)
-    entries = int((bins.table >= 0).sum())
-    px = cfg.tile_size * cfg.tile_size
-    t_count, k_cap = bins.table.shape
-    b1_bytes = faces9.numel() * 4 + bins.table.numel() * 4 + t_count * px * (4 + 4 + 12 + 4)
-    b1_ops = entries * (px * RASTER_OPS_PER_TEST + RASTER_OPS_PER_FACE)
-    b1_bound = max(b1_bytes / PEAK_BYTES_PER_S, b1_ops / PEAK_FP32_PER_S) * 1e3
+    b1_ms = cuda_time_ms(lambda: rz.rasterize_tiles_cuda(*b1.args, **b1.kwargs), 100)
+    b1_plain = cuda_time_ms(lambda: rz.rasterize_tiles_plain(*b1.args, **b1.kwargs), 5, warmup=1)
+    blur = b1.kwargs.get("blur_radius", 0.0)
+    work = rz.rasterize_tiles_work(faces, table, image_size, tile_size, blur)
+    b1_bound = max(work["bytes"] / PEAK_BYTES_PER_S, work["operations"] / PEAK_FP32_PER_S) * 1e3
+    occupancy = rz.rasterize_tiles_occupancy(tile_size)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    device_ms = device_ms_per_launch({
+        "rasterize_tiles_kernel": lambda: rz.rasterize_tiles_cuda(*b1.args, **b1.kwargs),
+        "mesh_expand_kernel": lambda: me.expand_project_faces_cuda(*b2.args, **b2.kwargs),
+        "launch_floor_kernel": lambda: me.launch_floor(n_faces, verts.device),
+    }, 50)
+    occ = (table >= 0).sum(1)
     emit({
-        "phase": "kernels", "faces": n_faces, "vertices": n_verts, "tiles": t_count,
-        "bin_capacity": k_cap, "bin_entries": entries, "mean_bin_occupancy": entries / t_count,
-        "max_bin_occupancy": int((bins.table >= 0).sum(1).max()),
+        "phase": "kernels", "faces": n_faces, "vertices": n_verts, "image_size": list(image_size),
+        "tiles": table.shape[0], "bin_capacity": table.shape[1], "bin_entries": work["entries"],
+        "mean_bin_occupancy": work["entries"] / table.shape[0], "max_bin_occupancy": int(occ.max()),
         "visible_pixels": int((got[0] >= 0).sum()),
+        "b1_blocks_per_sm": occupancy, "sms": sms, "b1_waves": table.shape[0] / (occupancy * sms),
+        "launch_floor_ms": floor_ms, "launch_floor_device_ms": device_ms["launch_floor_kernel"],
     })
     kernels = [
         {
@@ -218,9 +265,12 @@ def phase_kernels(pipe, launches, fitted_frames, image_size):
             "replaces": "dynamicfuion_python_tpu/ops/pallas/rasterize_tiles.py:185",
             "launches": launches["rasterize_tiles"],
             "launches_per_frame": launches["rasterize_tiles"] / fitted_frames,
-            "max_abs_err": b1_err, "ms": b1_ms, "kernel_ms": b1_ms, "plain_ms": b1_plain,
-            "bound_ms": b1_bound,
-            "bound_by": "bytes" if b1_bytes / PEAK_BYTES_PER_S > b1_ops / PEAK_FP32_PER_S else "operations",
+            "max_abs_err": b1_err, "ms": b1_ms, "device_ms": device_ms["rasterize_tiles_kernel"],
+            "plain_ms": b1_plain, "bound_ms": b1_bound,
+            "bound_by": "bytes" if work["bytes"] / PEAK_BYTES_PER_S > work["operations"] / PEAK_FP32_PER_S else "operations",
+            "tests": work["tests"], "tile_tests": work["tile_tests"],
+            "distinct_faces": work["distinct_faces"],
+            "operations": work["operations"], "bytes": work["bytes"],
             "library_ms": None,
         },
         {
@@ -229,9 +279,11 @@ def phase_kernels(pipe, launches, fitted_frames, image_size):
             "replaces": "dynamicfuion_python_tpu/ops/pallas/mesh_expand.py:178",
             "launches": launches["mesh_expand"],
             "launches_per_frame": launches["mesh_expand"] / fitted_frames,
-            "max_abs_err": b2_err, "ms": b2_ms, "kernel_ms": b2_ms, "plain_ms": b2_plain,
-            "bound_ms": b2_bound,
-            "bound_by": "bytes" if b2_bytes / PEAK_BYTES_PER_S > n_faces * EXPAND_OPS_PER_FACE / PEAK_FP32_PER_S else "operations",
+            "max_abs_err": b2_err, "ms": b2_ms, "device_ms": device_ms["mesh_expand_kernel"],
+            "plain_ms": b2_plain, "bound_ms": b2_bound,
+            "bound_by": "bytes" if b2_bytes / PEAK_BYTES_PER_S > b2_ops / PEAK_FP32_PER_S else "operations",
+            "launch_floor_device_ms": device_ms["launch_floor_kernel"],
+            "operations": b2_ops, "bytes": b2_bytes,
             "library_ms": None,
         },
     ]
@@ -281,8 +333,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     phase_build()
-    pipe, launches, fitted, image_size = phase_main_path()
-    phase_kernels(pipe, launches, fitted, image_size)
+    last, launches, fitted = phase_main_path()
+    phase_kernels(last, launches, fitted)
     phase_reference()
     emit({
         "ok": True,

@@ -46,7 +46,8 @@ SLICE_FOCAL = 672.0
 HAND_KERNELS = ("rasterize_tiles_kernel", "mesh_expand_kernel")
 
 
-def _device_us(evt) -> float:
+def device_us(evt) -> float:
+    """A profiler event's own device time in microseconds."""
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, name):
             return float(getattr(evt, name))
@@ -96,13 +97,13 @@ def main(argv=None) -> int:
         metrics, wall_s = _timed_frame(pipe, frames[-1])
     events = prof.key_averages()
     rows = sorted(
-        ({"name": e.key, "device_ms": _device_us(e) / 1e3, "calls": e.count} for e in events),
+        ({"name": e.key, "device_ms": device_us(e) / 1e3, "calls": e.count} for e in events),
         key=lambda r: -r["device_ms"],
     )
     kernel_rows = [r for r in rows if r["device_ms"] > 0]
     # device busy time: kernel rows only (operator rows double-count them)
     busy_ms = sum(
-        _device_us(e) for e in events if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+        device_us(e) for e in events if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
     ) / 1e3
     hand = {
         k: {"device_ms_per_launch": r["device_ms"] / max(r["calls"], 1), "launches": r["calls"]}

@@ -9,7 +9,8 @@ the identity.
 
 :func:`expand_project_faces` launches the CUDA kernel (``csrc/mesh_expand.cu``)
 for CUDA tensors and runs :func:`expand_project_faces_plain`, the same math
-in plain PyTorch, for CPU tensors.
+in plain PyTorch, for CPU tensors. :func:`launch_floor` launches an empty
+kernel on the same grid, to time what the launch alone costs.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p,  # out, valid
     ctypes.c_void_p,  # stream
 ]
+_FLOOR_ARGTYPES = [ctypes.c_int, ctypes.c_void_p]  # num_faces, stream
 
 
 def expand_project_faces_plain(
@@ -92,6 +94,16 @@ def expand_project_faces_cuda(
     native.check(status, "mesh_expand")
     native.launch_counts["mesh_expand"] += 1
     return out, valid
+
+
+def launch_floor(num_faces: int, device) -> None:
+    """Launch the empty kernel of ``csrc/mesh_expand.cu`` on the grid that
+    :func:`expand_project_faces_cuda` uses for ``num_faces`` faces. For
+    timing only: it computes nothing and is counted nowhere."""
+    status = native.entry_point("mesh_expand", _FLOOR_ARGTYPES, "launch_floor")(
+        int(num_faces), native.stream_handle(device)
+    )
+    native.check(status, "launch_floor")
 
 
 def expand_project_faces(

@@ -39,7 +39,7 @@ NVCC_FLAGS = (
 )
 
 launch_counts: dict[str, int] = {name: 0 for name in KERNELS}
-_entry_points: dict[str, tuple] = {}
+_entry_points: dict[tuple[str, str], tuple] = {}
 
 
 def reset_launch_counts() -> None:
@@ -96,20 +96,21 @@ def build_kernels(names=KERNELS) -> dict[str, str]:
     return reports
 
 
-def entry_point(name: str, argtypes: list):
-    """The C entry point of kernel ``name`` (each library exports one function
-    named like its source), building the library first if needed; its
-    argument types are set once."""
-    cached = _entry_points.get(name)
+def entry_point(name: str, argtypes: list, symbol: str | None = None):
+    """The C function ``symbol`` (by default ``name``, the kernel's launcher)
+    of the library built from ``csrc/<name>.cu``, building it first if
+    needed; its argument types are set once."""
+    symbol = symbol or name
+    cached = _entry_points.get((name, symbol))
     if cached is None:
         path = library_path(name)
         if not path.exists():
             build_kernels([name])
         lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, name)
+        fn = getattr(lib, symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        cached = _entry_points[name] = (lib, fn)  # the library stays loaded
+        cached = _entry_points[(name, symbol)] = (lib, fn)  # the library stays loaded
     return cached[1]
 
 

@@ -195,32 +195,62 @@ def rasterize_naive(
 _TILE_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_int,  # faces, num_faces
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # table, num_tiles, bin_capacity
-    ctypes.c_int, ctypes.c_int,  # tile_size, tiles_w
-    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # blur2, persp, clip, cull
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # tile_size, tiles_w, H, W
+    ctypes.c_float, ctypes.c_float,  # |blur radius|, blur radius^2
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,  # perspective, clip, cull
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # outputs
     ctypes.c_void_p,  # stream
 ]
+_OCCUPANCY_ARGTYPES = [ctypes.c_int, ctypes.c_void_p]  # tile_size, int* blocks per SM
+
+# FP32 adds/subtracts/multiplies/divides the rasterizer's function needs.
+# Per (pixel, face) test: the pixel relative to the 3 corners (6), 3 edge
+# functions on those and the face's edge vectors (3 x 3), 3 barycentric
+# divisions (3), 3 point-segment distances (3 x 11: dot 3, divide 1, offset
+# 4, squared length 3). Once per bin entry: 3 edge vectors (6), the area (3),
+# 3 squared edge lengths (9), 3 perspective reciprocals (3). Comparisons,
+# min/max and the work of hits only are not counted: the count is a lower one
+RASTER_OPS_PER_TEST = 51
+RASTER_OPS_PER_ENTRY = 21
+
+
+def _tiles_w(image_size, tile_size: int, table: torch.Tensor) -> int:
+    h, w = image_size
+    th, tw = -(-h // tile_size), -(-w // tile_size)
+    if table.ndim != 2 or table.shape[0] != th * tw:
+        raise ValueError(f"table must be [{th} x {tw} tiles, K], got {list(table.shape)}")
+    return tw
+
+
+def _detile(arr: torch.Tensor, th: int, tw: int, tile_size: int, extra: tuple = ()):
+    """Tile-major [T, tile_size^2, ...] -> image rows [th * ts, tw * ts, ...]."""
+    arr = arr.reshape(th, tw, tile_size, tile_size, *extra)
+    perm = (0, 2, 1, 3) + tuple(range(4, 4 + len(extra)))
+    return arr.permute(*perm).reshape(th * tile_size, tw * tile_size, *extra)
 
 
 def rasterize_tiles_plain(
     faces: torch.Tensor,
     table: torch.Tensor,
+    image_size: tuple[int, int],
     tile_size: int,
-    tiles_w: int,
     blur_radius: float = 0.0,
     perspective_correct: bool = True,
     clip_barycentrics: bool = False,
     cull_back_faces: bool = False,
 ):
-    """Per 16x16 (``tile_size``^2) tile, the nearest fragment of the faces
-    listed in its bin.
+    """Per pixel, the nearest fragment of the faces listed in its tile's bin.
 
     faces f32[F, 9] (u, v, z per corner); table int32[T, K] face ids (-1 =
-    empty, bins filled from the front). Returns face int32[T, P], depth
-    f32[T, P] (BG_DEPTH = empty), bary f32[T, 3, P], signed d2 f32[T, P] with
-    P = tile_size^2 pixels in row-major tile order.
+    empty, bins filled from the front) for the row-major grid of
+    ``tile_size``^2 tiles covering ``image_size`` = (H, W). Returns face
+    int32[H, W] (-1 = empty), depth f32[H, W] (BG_DEPTH = empty), bary
+    f32[H, W, 3] and signed squared distance f32[H, W] (negative inside).
     """
+    h, w = image_size
+    tw = _tiles_w(image_size, tile_size, table)
     t_count, k = table.shape
+    th = t_count // tw
     dev = faces.device
     p = tile_size * tile_size
     lin = torch.arange(p, device=dev)
@@ -228,8 +258,8 @@ def rasterize_tiles_plain(
     out = []
     for s in range(0, t_count, chunk):
         tiles = torch.arange(s, min(t_count, s + chunk), device=dev)
-        px = ((tiles % tiles_w) * tile_size)[:, None] + (lin % tile_size)[None]
-        py = ((tiles // tiles_w) * tile_size)[:, None] + (lin // tile_size)[None]
+        px = ((tiles % tw) * tile_size)[:, None] + (lin % tile_size)[None]
+        py = ((tiles // tw) * tile_size)[:, None] + (lin // tile_size)[None]
         ids = table[s : s + chunk].long()
         present = ids >= 0
         fv = faces[ids.clamp(min=0)]  # [tc, K, 9]
@@ -241,14 +271,19 @@ def rasterize_tiles_plain(
         hit = hit & present[:, None, :]
         out.append(_nearest(hit, depth, bary, d2, ids[:, None, :]))
     face, depth, bary, dist = (torch.cat([o[i] for o in out]) for i in range(4))
-    return face, depth, bary.permute(0, 2, 1).contiguous(), dist
+    return (
+        _detile(face, th, tw, tile_size)[:h, :w].contiguous(),
+        _detile(depth, th, tw, tile_size)[:h, :w].contiguous(),
+        _detile(bary, th, tw, tile_size, (3,))[:h, :w].contiguous(),
+        _detile(dist, th, tw, tile_size)[:h, :w].contiguous(),
+    )
 
 
 def rasterize_tiles_cuda(
     faces: torch.Tensor,
     table: torch.Tensor,
+    image_size: tuple[int, int],
     tile_size: int,
-    tiles_w: int,
     blur_radius: float = 0.0,
     perspective_correct: bool = True,
     clip_barycentrics: bool = False,
@@ -266,17 +301,19 @@ def rasterize_tiles_cuda(
     if not (faces.is_contiguous() and table.is_contiguous()):
         raise ValueError("faces and table must be contiguous")
     if not 1 <= tile_size <= 32:
-        raise ValueError("tile_size must be in [1, 32] (one thread per pixel)")
+        raise ValueError("tile_size must be in [1, 32]")
+    tw = _tiles_w(image_size, tile_size, table)
+    h, w = image_size
     t_count, k = table.shape
-    p = tile_size * tile_size
-    face_out = torch.empty((t_count, p), dtype=torch.int32, device=dev)
-    depth_out = torch.empty((t_count, p), dtype=torch.float32, device=dev)
-    bary_out = torch.empty((t_count, 3, p), dtype=torch.float32, device=dev)
-    dist_out = torch.empty((t_count, p), dtype=torch.float32, device=dev)
+    face_out = torch.empty((h, w), dtype=torch.int32, device=dev)
+    depth_out = torch.empty((h, w), dtype=torch.float32, device=dev)
+    bary_out = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
+    dist_out = torch.empty((h, w), dtype=torch.float32, device=dev)
     status = native.entry_point("rasterize_tiles", _TILE_ARGTYPES)(
         faces.data_ptr(), faces.shape[0],
         table.data_ptr(), t_count, k,
-        tile_size, tiles_w,
+        tile_size, tw, h, w,
+        abs(blur_radius),
         blur_radius * blur_radius,  # ctypes rounds to f32 as the plain compare does
         int(perspective_correct), int(clip_barycentrics), int(cull_back_faces),
         face_out.data_ptr(), depth_out.data_ptr(), bary_out.data_ptr(), dist_out.data_ptr(),
@@ -287,13 +324,81 @@ def rasterize_tiles_cuda(
     return face_out, depth_out, bary_out, dist_out
 
 
-def rasterize_tiles(faces: torch.Tensor, table: torch.Tensor, tile_size: int, tiles_w: int, **kwargs):
+def rasterize_tiles_occupancy(tile_size: int = 16) -> int:
+    """Resident blocks per SM of kernel B1 at ``tile_size`` (one block per
+    tile), as the CUDA runtime reports it for the current card."""
+    blocks = ctypes.c_int(0)
+    status = native.entry_point("rasterize_tiles", _OCCUPANCY_ARGTYPES, "rasterize_tiles_occupancy")(
+        tile_size, ctypes.byref(blocks)
+    )
+    native.check(status, "rasterize_tiles_occupancy")
+    return blocks.value
+
+
+def rasterize_tiles(
+    faces: torch.Tensor, table: torch.Tensor, image_size: tuple[int, int], tile_size: int, **kwargs
+):
     """Kernel B1 for CUDA tensors, its plain version for CPU tensors."""
     if faces.device.type == "cuda":
-        return rasterize_tiles_cuda(faces, table, tile_size, tiles_w, **kwargs)
+        return rasterize_tiles_cuda(faces, table, image_size, tile_size, **kwargs)
     if faces.device.type == "cpu":
-        return rasterize_tiles_plain(faces, table, tile_size, tiles_w, **kwargs)
+        return rasterize_tiles_plain(faces, table, image_size, tile_size, **kwargs)
     raise ValueError(f"unsupported device {faces.device}")
+
+
+def rasterize_tiles_work(
+    faces: torch.Tensor,
+    table: torch.Tensor,
+    image_size: tuple[int, int],
+    tile_size: int,
+    blur_radius: float = 0.0,
+) -> dict[str, int]:
+    """The work B1's function needs on these inputs, for its bound.
+
+    ``tests``: over all bin entries, the tile's pixels (inside the image)
+    that lie in the face's box widened by ``blur_radius`` (in float64): only
+    those can be a hit. ``tile_tests``: every pixel of the tile per entry,
+    the count the kernel's first version was held to. ``operations`` =
+    tests x RASTER_OPS_PER_TEST + entries x RASTER_OPS_PER_ENTRY. ``bytes``
+    reads what the function needs once: the bin entries and the -1 that
+    ends each bin that is not full (4 B each), the 9 floats of each distinct
+    face listed (36 B), and writes every output byte once.
+    """
+    h, w = image_size
+    tw = _tiles_w(image_size, tile_size, table)
+    dev = table.device
+    ids = table.long()
+    present = ids >= 0
+    fv = faces.to(torch.float64)[ids.clamp(min=0)]  # [T, K, 9]
+    tiles = torch.arange(table.shape[0], device=dev)
+    x0 = (tiles % tw) * tile_size
+    y0 = (tiles // tw) * tile_size
+    x1 = torch.clamp(x0 + tile_size, max=w) - 1
+    y1 = torch.clamp(y0 + tile_size, max=h) - 1
+    r = abs(blur_radius)
+
+    def span(coords, p0, p1):
+        # integer pixels p in [p0, p1] with min(coords) - r <= p <= max(coords) + r
+        lo = torch.maximum(torch.ceil(coords.amin(-1) - r), p0[:, None].to(torch.float64))
+        hi = torch.minimum(torch.floor(coords.amax(-1) + r), p1[:, None].to(torch.float64))
+        return torch.clamp(hi - lo + 1, min=0)
+
+    in_box = span(fv[..., 0::3], x0, x1) * span(fv[..., 1::3], y0, y1)
+    tile_px = (x1 - x0 + 1) * (y1 - y0 + 1)
+    per_bin = present.sum(1)
+    entries = int(per_bin.sum())
+    tests = int(torch.where(present, in_box, 0.0).sum())
+    tile_tests = int((per_bin * tile_px).sum())
+    ends = int((per_bin < table.shape[1]).sum())
+    distinct_faces = int(torch.unique(ids[present]).numel())
+    return {
+        "entries": entries,
+        "tests": tests,
+        "tile_tests": tile_tests,
+        "distinct_faces": distinct_faces,
+        "operations": tests * RASTER_OPS_PER_TEST + entries * RASTER_OPS_PER_ENTRY,
+        "bytes": (entries + ends) * 4 + distinct_faces * 36 + h * w * (4 + 4 + 12 + 4),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -434,12 +539,6 @@ def bin_faces(
     return BinTable(table.contiguous(), th, tw, dropped_large, dropped_bins)
 
 
-def _detile(arr: torch.Tensor, th: int, tw: int, tile_size: int, extra: tuple = ()):
-    arr = arr.reshape(th, tw, tile_size, tile_size, *extra)
-    perm = (0, 2, 1, 3) + tuple(range(4, 4 + len(extra)))
-    return arr.permute(*perm).reshape(th * tile_size, tw * tile_size, *extra)
-
-
 def rasterize_binned(
     face_vertices: torch.Tensor,
     valid_faces: torch.Tensor,
@@ -464,26 +563,25 @@ def rasterize_binned(
     """
     if faces_per_pixel != 1:
         raise NotImplementedError("K > 1 fragments are not ported yet (ROADMAP A10)")
-    h, w = image_size
     f = face_vertices.shape[0]
     bins = bin_faces(
         face_vertices, valid_faces, image_size, blur_radius, tile_size,
         max_faces_per_bin, small_span, max_large_faces,
     )
-    faces9 = torch.where(valid_faces[:, None, None], face_vertices, -1e9).reshape(f, 9)
-    face_t, depth_t, bary_t, d2_t = rasterize_tiles(
-        faces9.contiguous(), bins.table, tile_size, bins.tiles_w,
+    # bins list only on-screen faces, which are valid ones: the kernel reads
+    # the faces as they are, with no masked copy
+    face, depth, bary, dist = rasterize_tiles(
+        face_vertices.reshape(f, 9).contiguous(), bins.table, image_size, tile_size,
         blur_radius=blur_radius,
         perspective_correct=perspective_correct,
         clip_barycentrics=clip_barycentrics,
         cull_back_faces=cull_back_faces,
     )
-    th, tw = bins.tiles_h, bins.tiles_w
     frag = Fragments(
-        face_indices=_detile(face_t, th, tw, tile_size)[:h, :w][..., None],
-        depths=_detile(depth_t, th, tw, tile_size)[:h, :w][..., None],
-        barycentrics=_detile(bary_t.permute(0, 2, 1), th, tw, tile_size, (3,))[:h, :w][:, :, None, :],
-        distances=_detile(d2_t, th, tw, tile_size)[:h, :w][..., None],
+        face_indices=face[..., None],
+        depths=depth[..., None],
+        barycentrics=bary[:, :, None, :],
+        distances=dist[..., None],
     )
     if not return_overflow:
         return frag
