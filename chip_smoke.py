@@ -10,15 +10,24 @@ non-zero, on any failure):
   2. main path: the port's FusionPipeline on the slice that
      dynamicfuion_python_tpu_torch/apps/profile_frame.py defines (synthetic
      bending plane at 480x640, focal 672, the DeepDeform sensor resolution;
-     default Parameters with rigid odometry off, mesh capacity 65536, block
-     table 4096 and 2048 active blocks so the scene fits), frame 0 + 5 fitted
-     frames; every GN iteration must go through both kernels;
+     default Parameters, rigid odometry on, with capacity overrides only:
+     mesh capacity 65536, block table 4096 and 2048 active blocks so the
+     scene fits), frame 0 + 5 fitted frames; every GN iteration must go
+     through both kernels, and odometry must run on every frame from 2 on;
   3. kernels: each kernel against its plain PyTorch version on the inputs
      of the main path's last launch (the warped mesh of the last frame's
      last GN iteration), timed with CUDA events and the profiler beside its
-     bound (counted from those inputs) and an empty kernel's launch floor;
-  4. reference: a small 3-frame scene through the kernels on the card and
-     through the plain versions on the CPU must agree.
+     bound (counted from those inputs) and an empty kernel's launch floor
+     on the kernel's own grid;
+  4. odometry: rigid_odometry_multi_scale on the card, under
+     torch.cuda.set_sync_debug_mode("error"), on the main path's last depth
+     pair and on a 480x640 wavy surface moved by a known rotation and
+     translation; the card must equal the CPU and recover the motion;
+  5. entry point: the CLI runs 4 frames of the slice with telemetry, and
+     run_fusion resumes from a checkpoint to the full run's result;
+  6. reference: a small 3-frame scene (odometry on frame 2) through the
+     kernels on the card and through the plain versions on the CPU must
+     agree.
 The last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits non-zero and prints no result.
 """
@@ -26,9 +35,12 @@ script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and FP32 outside the
 # tensor cores. Built with --fmad=false, the kernels' FP32 issue ceiling is
@@ -46,6 +58,21 @@ def emit(obj) -> None:
 def check(cond, message: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {message}")
+
+
+def pose_summary(extrinsics) -> dict:
+    """A 4x4 camera pose's translation norm, rotation angle (rad) and the
+    largest entry of R R^T - I."""
+    import torch
+
+    t = extrinsics.detach().double().cpu()
+    rot = t[:3, :3]
+    cos = torch.clamp((torch.trace(rot) - 1.0) / 2.0, -1.0, 1.0)
+    return {
+        "translation_norm": float(torch.linalg.norm(t[:3, 3])),
+        "rotation_angle": float(torch.arccos(cos)),
+        "orthonormality_err": float((rot @ rot.T - torch.eye(3, dtype=torch.float64)).abs().max()),
+    }
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -89,16 +116,19 @@ def device_ms_per_launch(fns: dict, iters: int) -> dict:
 
 class LastCall:
     """Replaces ``module.name`` by a function that records the arguments of
-    its last call and calls the original; :meth:`restore` puts it back."""
+    its last call and counts its calls, then calls the original;
+    :meth:`restore` puts it back."""
 
     def __init__(self, module, name: str):
         self.module, self.name = module, name
         self.fn = getattr(module, name)
         self.args, self.kwargs = None, None
+        self.calls = 0
         setattr(module, name, self)
 
     def __call__(self, *args, **kwargs):
         self.args, self.kwargs = args, kwargs
+        self.calls += 1
         return self.fn(*args, **kwargs)
 
     def restore(self) -> None:
@@ -139,15 +169,18 @@ def phase_main_path():
     from dynamicfuion_python_tpu_torch.apps.fusion_pipeline import FusionPipeline
     from dynamicfuion_python_tpu_torch.apps.profile_frame import make_slice
     from dynamicfuion_python_tpu_torch.models import fitter
-    from dynamicfuion_python_tpu_torch.ops import native, rasterize
+    from dynamicfuion_python_tpu_torch.ops import native, rasterize, rigid_odometry
 
     params, seq = make_slice(frame_count=6)
+    check(params.alignment.use_rigid_alignment, "the slice must run the default rigid odometry")
     frames = list(seq)
     torch.cuda.reset_peak_memory_stats()
     # the inputs of each kernel's last launch, for phase 3: the fitter's B2
-    # call and rasterize_binned's B1 call
+    # call and rasterize_binned's B1 call; the odometry's calls (counted per
+    # frame) and last depth pair, for phase 4
     last = {"mesh_expand": LastCall(fitter, "expand_project_faces"),
-            "rasterize_tiles": LastCall(rasterize, "rasterize_tiles")}
+            "rasterize_tiles": LastCall(rasterize, "rasterize_tiles"),
+            "odometry": LastCall(rigid_odometry, "rigid_odometry_multi_scale")}
     native.reset_launch_counts()
     pipe = FusionPipeline(params, seq.intrinsics)  # the default device: the card
     t0 = time.perf_counter()
@@ -160,6 +193,7 @@ def phase_main_path():
     })
     per_frame = []
     for f in frames[1:]:
+        odometry_calls = last["odometry"].calls
         t0 = time.perf_counter()
         m = pipe.process_frame(f.depth, f.color)
         torch.cuda.synchronize()
@@ -167,6 +201,8 @@ def phase_main_path():
         occupied = int(pipe.volume.occupied_count())
         row = {
             "phase": "main_path", "frame": f.index, "wall_s": wall,
+            "odometry_ran": last["odometry"].calls > odometry_calls, "rigid_rmse": m["rigid_rmse"],
+            **pose_summary(pipe.extrinsics),
             "data_loss": m["data_loss"], "arap_loss": m["arap_loss"],
             "valid_solve": m["valid_solve"], "active_blocks": m["active_blocks"],
             "max_active_blocks": params.tsdf.max_active_blocks,
@@ -184,6 +220,12 @@ def phase_main_path():
     for rec in last.values():
         rec.restore()
     for row in per_frame:
+        check(row["odometry_ran"] == (row["frame"] >= 2),
+              f"frame {row['frame']}: odometry ran {row['odometry_ran']}, expected from frame 2 on")
+        check(math.isfinite(row["rigid_rmse"]) and row["rigid_rmse"] < 0.07,
+              f"frame {row['frame']}: rigid rmse {row['rigid_rmse']} not finite or >= 0.07")
+        check(row["orthonormality_err"] <= 1e-4,
+              f"frame {row['frame']}: pose rotation off orthonormal by {row['orthonormality_err']}")
         check(all(row["valid_solve"]), f"frame {row['frame']}: a GN solve was invalid")
         check(row["data_loss"][-1] < row["data_loss"][0], f"frame {row['frame']}: data loss did not fall")
         check(0 < row["active_blocks"] <= row["max_active_blocks"],
@@ -198,6 +240,7 @@ def phase_main_path():
           "non-finite canonical mesh or node translations")
     emit({
         "phase": "main_path", "summary": True, "launches": launches, "fitted_frames": len(per_frame),
+        "odometry_calls": last["odometry"].calls,
         "mean_frame_s": sum(r["wall_s"] for r in per_frame) / len(per_frame),
         "peak_mem_mib": torch.cuda.max_memory_allocated() / 2**20,
     })
@@ -222,7 +265,8 @@ def phase_kernels(last, launches, fitted_frames):
     n_faces, n_verts = tris.shape[0], verts.shape[0]
     b2_ms = cuda_time_ms(lambda: me.expand_project_faces_cuda(*b2.args, **b2.kwargs), 200)
     b2_plain = cuda_time_ms(lambda: me.expand_project_faces_plain(*b2.args, **b2.kwargs), 50)
-    floor_ms = cuda_time_ms(lambda: me.launch_floor(n_faces, verts.device), 200)
+    b2_grid = me.expand_grid(n_faces)
+    floor_ms = cuda_time_ms(lambda: me.launch_floor(*b2_grid, verts.device), 200)
     b2_bytes = n_verts * 12 + n_faces * 12 + 36 + n_faces * 36 + n_faces
     b2_ops = n_faces * EXPAND_OPS_PER_FACE
     b2_bound = max(b2_bytes / PEAK_BYTES_PER_S, b2_ops / PEAK_FP32_PER_S) * 1e3
@@ -243,12 +287,20 @@ def phase_kernels(last, launches, fitted_frames):
     b1_bound = max(work["bytes"] / PEAK_BYTES_PER_S, work["operations"] / PEAK_FP32_PER_S) * 1e3
     occupancy = rz.rasterize_tiles_occupancy(tile_size)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    b1_grid = rz.rasterize_tiles_grid(table.shape[0], tile_size)
+    b1_floor_ms = cuda_time_ms(lambda: me.launch_floor(*b1_grid, verts.device), 200)
 
     device_ms = device_ms_per_launch({
         "rasterize_tiles_kernel": lambda: rz.rasterize_tiles_cuda(*b1.args, **b1.kwargs),
         "mesh_expand_kernel": lambda: me.expand_project_faces_cuda(*b2.args, **b2.kwargs),
-        "launch_floor_kernel": lambda: me.launch_floor(n_faces, verts.device),
     }, 50)
+    # the empty kernel on each grid, traced apart: both launches share its name
+    floor_device_ms = {
+        name: device_ms_per_launch({"launch_floor_kernel": lambda g=grid: me.launch_floor(*g, verts.device)}, 50)[
+            "launch_floor_kernel"
+        ]
+        for name, grid in (("rasterize_tiles", b1_grid), ("mesh_expand", b2_grid))
+    }
     occ = (table >= 0).sum(1)
     emit({
         "phase": "kernels", "faces": n_faces, "vertices": n_verts, "image_size": list(image_size),
@@ -256,7 +308,9 @@ def phase_kernels(last, launches, fitted_frames):
         "mean_bin_occupancy": work["entries"] / table.shape[0], "max_bin_occupancy": int(occ.max()),
         "visible_pixels": int((got[0] >= 0).sum()),
         "b1_blocks_per_sm": occupancy, "sms": sms, "b1_waves": table.shape[0] / (occupancy * sms),
-        "launch_floor_ms": floor_ms, "launch_floor_device_ms": device_ms["launch_floor_kernel"],
+        "b1_grid": list(b1_grid), "b2_grid": list(b2_grid),
+        "b1_launch_floor_ms": b1_floor_ms, "b2_launch_floor_ms": floor_ms,
+        "launch_floor_device_ms": floor_device_ms,
     })
     kernels = [
         {
@@ -268,6 +322,7 @@ def phase_kernels(last, launches, fitted_frames):
             "max_abs_err": b1_err, "ms": b1_ms, "device_ms": device_ms["rasterize_tiles_kernel"],
             "plain_ms": b1_plain, "bound_ms": b1_bound,
             "bound_by": "bytes" if work["bytes"] / PEAK_BYTES_PER_S > work["operations"] / PEAK_FP32_PER_S else "operations",
+            "launch_floor_device_ms": floor_device_ms["rasterize_tiles"],
             "tests": work["tests"], "tile_tests": work["tile_tests"],
             "distinct_faces": work["distinct_faces"],
             "operations": work["operations"], "bytes": work["bytes"],
@@ -282,7 +337,7 @@ def phase_kernels(last, launches, fitted_frames):
             "max_abs_err": b2_err, "ms": b2_ms, "device_ms": device_ms["mesh_expand_kernel"],
             "plain_ms": b2_plain, "bound_ms": b2_bound,
             "bound_by": "bytes" if b2_bytes / PEAK_BYTES_PER_S > b2_ops / PEAK_FP32_PER_S else "operations",
-            "launch_floor_device_ms": device_ms["launch_floor_kernel"],
+            "launch_floor_device_ms": floor_device_ms["mesh_expand"],
             "operations": b2_ops, "bytes": b2_bytes,
             "library_ms": None,
         },
@@ -290,9 +345,125 @@ def phase_kernels(last, launches, fitted_frames):
     emit({"kernels": kernels})
 
 
+def wavy_motion_scene(height: int = 480, width: int = 640):
+    """The wavy surface of the JAX package's odometry tests at 4x their
+    120x160 resolution (same geometry: focal and wavelengths scaled), and
+    the same surface moved by a 0.01 rad rotation about y plus 1 cm along z,
+    splatted to its nearest pixels. Returns (source depth, target depth,
+    intrinsics, the motion as a 4x4) on the CPU."""
+    import numpy as np
+    import torch
+
+    from dynamicfuion_python_tpu_torch.ops.camera import project_points, unproject_depth_image
+    from dynamicfuion_python_tpu_torch.ops.linalg import axis_angle_to_matrix
+
+    scale = width / 160
+    k = torch.tensor([[160.0 * scale, 0.0, width / 2], [0.0, 160.0 * scale, height / 2], [0.0, 0.0, 1.0]])
+    v, u = np.mgrid[0:height, 0:width].astype(np.float32)
+    z = 1.2 + 0.08 * np.sin(u / (12 * scale)) * np.cos(v / (12 * scale))
+    source = torch.as_tensor((z * 1000).astype(np.uint16).astype(np.int32))
+    motion = torch.eye(4)
+    motion[:3, :3] = axis_angle_to_matrix(torch.tensor([0.0, 0.01, 0.0]))
+    motion[2, 3] = 0.01
+    pts, mask = unproject_depth_image(source, k, 1000.0, 5.0)
+    moved = pts.reshape(-1, 3) @ motion[:3, :3].T + motion[:3, 3]
+    uv, _ = project_points(moved, k)
+    pu = torch.round(uv[:, 0]).long().numpy()
+    pv = torch.round(uv[:, 1]).long().numpy()
+    ok = mask.reshape(-1).numpy() & (pu >= 0) & (pu < width) & (pv >= 0) & (pv < height)
+    target = np.zeros((height, width), np.float32)
+    target[pv[ok], pu[ok]] = moved[:, 2].numpy()[ok] * 1000
+    return source, torch.as_tensor(target.astype(np.uint16).astype(np.int32)), k, motion
+
+
+def phase_odometry(odometry_call):
+    """Rigid odometry on the card: sync-free, equal to the CPU, and right on
+    a known motion."""
+    import torch
+
+    from dynamicfuion_python_tpu_torch.ops.rigid_odometry import rigid_odometry_multi_scale
+
+    source, target, k, motion = wavy_motion_scene()
+    prev, cur, intr = odometry_call.args
+    cases = {
+        "main_path_last_pair": ((prev, cur, intr), odometry_call.kwargs),
+        "wavy_rotation_y_0.01_z_1cm": ((source, target, k), {}),
+    }
+    out = {"phase": "odometry"}
+    for name, (args, kwargs) in cases.items():
+        card_args = [a.cuda() for a in args]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")  # any host sync in the call raises
+        try:
+            card_t, card_rmse = rigid_odometry_multi_scale(*card_args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        cpu_t, cpu_rmse = rigid_odometry_multi_scale(*[a.cpu() for a in args], **kwargs)
+        err_t = float((card_t.cpu() - cpu_t).abs().max())
+        err_rmse = abs(float(card_rmse) - float(cpu_rmse))
+        check(err_t <= 1e-4 and err_rmse <= 1e-4,
+              f"odometry {name}: card differs from the CPU (transform {err_t}, rmse {err_rmse})")
+        ms = cuda_time_ms(lambda: rigid_odometry_multi_scale(*card_args, **kwargs), 10, warmup=2)
+        row = {"transform_card_vs_cpu": err_t, "rmse_card_vs_cpu": err_rmse, "rmse": float(card_rmse),
+               "ms_per_call": ms, **pose_summary(card_t)}
+        if name.startswith("wavy"):
+            got = card_t.cpu()
+            row["rotation_err"] = float((got[:3, :3] - motion[:3, :3]).abs().max())
+            row["translation_err"] = float((got[:3, 3] - motion[:3, 3]).abs().max())
+            # the JAX package's odometry tests' gates: 3e-3 on the rotation,
+            # 2e-3 m on the translation
+            check(row["rotation_err"] <= 3e-3 and row["translation_err"] <= 2e-3,
+                  f"odometry {name}: motion not recovered ({row['rotation_err']}, {row['translation_err']})")
+        out[name] = row
+    emit(out)
+
+
+def phase_entry_point():
+    """The CLI with telemetry on the slice, and run_fusion's checkpoint and
+    resume, on the card."""
+    import torch
+
+    from dynamicfuion_python_tpu_torch.apps.fusion_pipeline import main, run_fusion
+    from dynamicfuion_python_tpu_torch.apps.profile_frame import SLICE_IMAGE_SIZE, SLICE_OVERRIDES, make_slice
+    from dynamicfuion_python_tpu_torch.utils.config import apply_overrides
+
+    h, w = SLICE_IMAGE_SIZE  # the CLI's synthetic focal, min(h, w) * 1.4, is the slice's
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "telemetry"
+        t0 = time.perf_counter()
+        result = main([
+            "--sequence", "synthetic", "--frames", "4", "--size", f"{h}x{w}", *SLICE_OVERRIDES,
+            f"telemetry.output_directory={out}", "telemetry.print_runtime=false",
+        ])
+        cli_s = time.perf_counter() - t0
+        runs = list(out.iterdir())
+        check(len(runs) == 1, f"the CLI wrote {len(runs)} run directories")
+        metrics = json.loads((runs[0] / "metrics.json").read_text())
+        plys = sorted(p.name for p in runs[0].glob("*.ply"))
+        check(metrics["frame_count"] == 4 and len(plys) == 6,
+              f"CLI telemetry: {metrics['frame_count']} frames, PLY files {plys}")
+        check(all(all(f["valid_solve"]) for f in metrics["frames"][1:]), "CLI: a GN solve was invalid")
+
+        params, seq = make_slice(frame_count=3)
+        params = apply_overrides(params, [f"telemetry.output_directory={out}", "telemetry.print_runtime=false"])
+        ckpt = Path(tmp) / "checkpoint"
+        full = run_fusion(seq, params, run_name="full", checkpoint_dir=str(ckpt), checkpoint_every=2)
+        resumed = run_fusion(seq, params, run_name="resumed", checkpoint_dir=str(ckpt), resume=True)
+        check(resumed.summary["frame_count"] == 1, "resume: expected one frame after the checkpoint")
+        err = float((resumed.warp_field.node_translations - full.warp_field.node_translations).abs().max())
+        check(err <= 1e-4, f"resume: node translations differ from the full run by {err}")
+        torch.cuda.synchronize()
+    emit({
+        "phase": "entry_point", "cli_s": cli_s, "cli_frames": metrics["frame_count"],
+        "cli_triangles": len(result.canonical_mesh), "ply_files": len(plys),
+        "resume_max_translation_diff": err, "resumed_frames": resumed.summary["frame_count"],
+    })
+
+
 def phase_reference():
     """A small scene through the kernels on the card and through the plain
-    versions on the CPU: the same losses, validity and block counts."""
+    versions on the CPU: the same losses, validity, block counts and camera
+    pose (frame 2 runs odometry)."""
     import dataclasses
 
     from dynamicfuion_python_tpu_torch.apps.fusion_pipeline import FusionPipeline
@@ -303,18 +474,18 @@ def phase_reference():
     params = apply_overrides(Parameters(), [
         "tsdf.voxel_size=0.01", "tsdf.sdf_truncation_distance=0.04", "tsdf.initial_block_count=512",
         "graph.node_coverage=0.12", "graph.layer_count=2", "graph.erosion_num_iterations=1",
-        "alignment.max_iteration_count=2", "alignment.arap_term_weight=20.0",
-        "alignment.use_rigid_alignment=false", "fusion.far_clip_distance=2.0",
+        "alignment.max_iteration_count=2", "alignment.arap_term_weight=20.0", "fusion.far_clip_distance=2.0",
         "fusion.extraction_max_triangles=60000", "fusion.mesh_capacity_hint=65536",
     ])
     seq = SyntheticBendingPlaneSequence(frame_count=3, image_size=(64, 96), bend_per_frame=0.02, focal=120.0)
     frames = list(seq)
-    out = {}
+    out, poses = {}, {}
     for device in ("cuda", "cpu"):
         pipe = FusionPipeline(params, seq.intrinsics, device=device)
         pipe.fitter_config = dataclasses.replace(pipe.fitter_config, max_faces_per_bin=1024)
         pipe.initialize(frames[0].depth, frames[0].color)
         out[device] = [pipe.process_frame(f.depth, f.color) for f in frames[1:]]
+        poses[device] = pipe.extrinsics.cpu()
     worst = 0.0
     for g, c in zip(out["cuda"], out["cpu"]):
         check(g["valid_solve"] == c["valid_solve"], "reference: valid_solve differs card vs CPU")
@@ -323,7 +494,11 @@ def phase_reference():
             worst = max(worst, abs(a - b) / max(abs(b), 1e-12))
     # f32 sums in another order on the card (atomics in index_add_)
     check(worst < 1e-2, f"reference: losses differ card vs CPU by {worst:.3g} relative")
-    emit({"phase": "reference", "max_rel_loss_diff": worst, "frames": len(out["cuda"])})
+    pose_err = float((poses["cuda"] - poses["cpu"]).abs().max())
+    check(out["cpu"][-1]["rigid_rmse"] > 0, "reference: odometry did not run on frame 2")
+    check(pose_err <= 1e-4, f"reference: camera pose differs card vs CPU by {pose_err}")
+    emit({"phase": "reference", "max_rel_loss_diff": worst, "pose_card_vs_cpu": pose_err,
+          "frames": len(out["cuda"]), **pose_summary(poses["cuda"])})
 
 
 def main() -> int:
@@ -335,6 +510,8 @@ def main() -> int:
     phase_build()
     last, launches, fitted = phase_main_path()
     phase_kernels(last, launches, fitted)
+    phase_odometry(last["odometry"])
+    phase_entry_point()
     phase_reference()
     emit({
         "ok": True,

@@ -1,26 +1,42 @@
 """DynamicFusion pipeline: dense non-rigid RGB-D fusion over a sequence
-(port of ``dynamicfuion_python_tpu/apps/fusion_pipeline.py``, the default
-path).
+(port of ``dynamicfuion_python_tpu/apps/fusion_pipeline.py``).
 
-  frame 0:  discover + activate blocks -> rigid TSDF integrate -> extract the
-            canonical mesh -> sample graph nodes on it (erode -> sample ->
-            hierarchy layers)
-  frame t:  unproject depth -> fit the warp field by Gauss-Newton/LM
-            mesh-to-image alignment -> find blocks intersecting the warped
-            truncation region -> sleeve activation -> non-rigid integrate ->
-            re-extract the canonical mesh
+  frame 0:  discover + activate blocks -> rigid TSDF integrate -> build the
+            deformation graph (on the extracted canonical mesh, on the depth
+            image's mesh, or from precomputed blobs, whose coverage region
+            crops the frame first)
+  frame t:  rigid odometry against the previous frame (camera pose) ->
+            unproject depth into the canonical camera -> fit the warp field
+            by Gauss-Newton/LM mesh-to-image alignment -> find blocks
+            intersecting the warped truncation region -> sleeve activation ->
+            non-rigid integrate through the field and the pose -> re-extract
+            the canonical mesh
 
-Not ported yet, and refused with ``NotImplementedError``: rigid odometry
-(ROADMAP A7), the neural tracking prior and tracking spans (A12), the
-depth-image and loaded graph modes, SPMD (A17), telemetry and checkpoints
-(A15).
+As in the JAX package, the first frame after ``initialize`` runs no
+odometry: ``initialize`` leaves ``previous_depth`` unset.
+
+Not ported yet, and refused with ``NotImplementedError``: the neural tracking
+prior, ``prior_flow`` and tracking spans (ROADMAP A12), the SPMD frame loop
+(A17), the ``"fast"`` / ``"autodiff"`` data terms (A5b) and the rendered-mesh
+recorder (A10).
+
+Run:  python -m dynamicfuion_python_tpu_torch.apps.fusion_pipeline \\
+          --sequence <dir>|synthetic [--frames N] [--size HxW] \\
+          [--config file.yaml] [--device cuda|cpu] [key=value overrides...]
 """
 
 from __future__ import annotations
 
+import sys
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
+from dynamicfuion_python_tpu_torch.data.frame_sequence import (
+    FrameSequenceDataset,
+    SyntheticBendingPlaneSequence,
+)
 from dynamicfuion_python_tpu_torch.models.fitter import FitterConfig, IterationMode, fit_to_image
 from dynamicfuion_python_tpu_torch.models.voxel_block_grid import (
     VoxelBlockGrid,
@@ -29,17 +45,37 @@ from dynamicfuion_python_tpu_torch.models.voxel_block_grid import (
 from dynamicfuion_python_tpu_torch.models.warp_field import (
     HierarchicalGraphWarpField,
     NodeCoverageMethod,
+    WarpField,
 )
-from dynamicfuion_python_tpu_torch.ops.camera import unproject_depth_image
+from dynamicfuion_python_tpu_torch.ops import rigid_odometry
+from dynamicfuion_python_tpu_torch.ops.camera import transform_points, unproject_depth_image
 from dynamicfuion_python_tpu_torch.ops.compaction import compact_mask_indices
-from dynamicfuion_python_tpu_torch.ops.graph_construction import sample_nodes, vertex_erosion_mask
+from dynamicfuion_python_tpu_torch.ops.graph_construction import (
+    mesh_from_depth_image,
+    sample_nodes,
+    vertex_erosion_mask,
+)
 from dynamicfuion_python_tpu_torch.ops.normals import point_image_normals
 from dynamicfuion_python_tpu_torch.settings import (
     GraphGenerationMode,
     MeshExtractionWeightThresholdingMode,
     Parameters,
+    TrackingSpanMode,
 )
 from dynamicfuion_python_tpu_torch.utils.device import resolve_device
+from dynamicfuion_python_tpu_torch.utils.telemetry import TelemetryRecorder
+from dynamicfuion_python_tpu_torch.utils.tensor_io import (
+    load_fusion_checkpoint,
+    save_fusion_checkpoint,
+)
+
+
+@dataclass
+class FusionResult:
+    warp_field: WarpField
+    volume: VoxelBlockGrid
+    canonical_mesh: np.ndarray  # triangle soup f32[T, 3, 3]
+    summary: dict
 
 
 class FusionPipeline:
@@ -49,17 +85,16 @@ class FusionPipeline:
     def __init__(self, params: Parameters, intrinsics: np.ndarray, device=None):
         a = params.alignment
         f = params.fusion
-        if a.use_rigid_alignment:
-            raise NotImplementedError(
-                "rigid odometry is not ported yet (ROADMAP A7); set "
-                "alignment.use_rigid_alignment=false"
-            )
         if f.use_neural_prior:
             raise NotImplementedError("the neural tracking prior is not ported yet (ROADMAP A12)")
-        if f.graph_generation_mode != GraphGenerationMode.FIRST_FRAME_EXTRACTED_MESH:
+        if f.tracking_span_mode != TrackingSpanMode.FIRST_TO_CURRENT:
             raise NotImplementedError(
-                f"graph_generation_mode={f.graph_generation_mode.name} is not ported yet; "
-                "only FIRST_FRAME_EXTRACTED_MESH runs in the PyTorch port"
+                f"tracking_span_mode={f.tracking_span_mode.name} drives the neural prior, which is "
+                "not ported yet (ROADMAP A12)"
+            )
+        if a.data_term_impl != "face":
+            raise NotImplementedError(
+                f"alignment.data_term_impl={a.data_term_impl!r} is not ported yet (ROADMAP A5b)"
             )
         self.device = resolve_device(device)
         self.params = params
@@ -78,6 +113,7 @@ class FusionPipeline:
         self.canonical_vertices: torch.Tensor | None = None
         self.canonical_triangles: torch.Tensor | None = None
         self.canonical_triangle_count = 0
+        self._canonical_soup_np: np.ndarray | None = None
         # sticky grow-only power-of-two capacities of the fitter's mesh
         # arrays; growth follows the previous frame's counts, as in the JAX
         # package (which fetched them asynchronously)
@@ -85,7 +121,12 @@ class FusionPipeline:
         self._mesh_v_cap = 4096
         self._pending_counts: tuple | None = None
         self._count_host: tuple[int, int] = (0, 0)
+        # cumulative camera pose: canonical (frame-0) camera space -> current
+        # camera space, updated by rigid odometry each frame
+        self.extrinsics = torch.eye(4, dtype=torch.float32, device=self.device)
+        self.previous_depth: torch.Tensor | None = None
         self.frames_processed = 0
+        self.telemetry: TelemetryRecorder | None = None  # set by run_fusion
         self.fitter_config = FitterConfig(
             max_iterations=a.max_iteration_count,
             min_update_threshold=a.min_update_threshold,
@@ -117,35 +158,72 @@ class FusionPipeline:
 
     # -- first frame ---------------------------------------------------------
 
-    def initialize(self, depth: np.ndarray, color: np.ndarray | None):
-        """Rigid-integrate the first frame and build the deformation graph on
-        its extracted mesh (``FIRST_FRAME_EXTRACTED_MESH``)."""
+    def initialize(self, depth: np.ndarray, color: np.ndarray | None, frame_graph: dict | None = None):
+        """Rigid-integrate the first frame and build the deformation graph
+        per ``fusion.graph_generation_mode``. ``frame_graph`` holds the
+        precomputed blobs of ``FIRST_FRAME_LOADED_GRAPH`` (normally from
+        ``FrameSequenceDataset.get_frame_graph``)."""
         p = self.params
+        g = p.graph
+        mode = p.fusion.graph_generation_mode
         depth_t = self._frame(depth)
+        if (
+            mode == GraphGenerationMode.FIRST_FRAME_LOADED_GRAPH
+            and frame_graph is not None
+            and p.fusion.crop_to_graph_coverage
+        ):
+            depth_t = crop_depth_to_coverage(
+                depth_t,
+                torch.as_tensor(np.asarray(frame_graph["nodes"]), dtype=torch.float32, device=self.device),
+                self.intrinsics,
+                p.fusion.depth_scale,
+                p.fusion.far_clip_distance,
+                2.0 * g.node_coverage,
+            )
         keys = self.volume.compute_unique_block_coordinates(depth_t, self.intrinsics, stride=2)
         self.volume = self.volume.activate(keys)
         color_t = self._frame(color).to(torch.float32) / 255.0 if color is not None else None
         self.volume = self.volume.integrate(depth_t, self.intrinsics, color=color_t)
         self._refresh_canonical_mesh(sync=True)
 
-        faces = self.canonical_triangles[: self.canonical_triangle_count].cpu().numpy()
-        verts = self.canonical_vertices.cpu().numpy()
-        erosion = vertex_erosion_mask(
-            verts, faces, p.graph.erosion_num_iterations, p.graph.erosion_min_neighbors
-        )
-        nodes, _ = sample_nodes(verts, erosion, p.graph.node_coverage, use_only_non_eroded=True)
-        if len(nodes) < p.graph.anchor_count:
-            used = np.zeros(len(verts), bool)
-            used[faces.reshape(-1)] = True
-            nodes, _ = sample_nodes(verts, used, p.graph.node_coverage, use_only_non_eroded=True)
+        if mode == GraphGenerationMode.FIRST_FRAME_EXTRACTED_MESH:
+            faces = self.canonical_triangles[: self.canonical_triangle_count].cpu().numpy()
+            verts = self.canonical_vertices.cpu().numpy()
+            erosion = vertex_erosion_mask(verts, faces, g.erosion_num_iterations, g.erosion_min_neighbors)
+            nodes, _ = sample_nodes(verts, erosion, g.node_coverage, use_only_non_eroded=True)
+            if len(nodes) < g.anchor_count:
+                used = np.zeros(len(verts), bool)
+                used[faces.reshape(-1)] = True
+                nodes, _ = sample_nodes(verts, used, g.node_coverage, use_only_non_eroded=True)
+        elif mode == GraphGenerationMode.FIRST_FRAME_LOADED_GRAPH:
+            if frame_graph is None:
+                raise ValueError(
+                    "graph_generation_mode=FIRST_FRAME_LOADED_GRAPH but no precomputed graph was "
+                    "found for the first frame"
+                )
+            nodes = np.asarray(frame_graph["nodes"], np.float32)
+        elif mode == GraphGenerationMode.FIRST_FRAME_DEPTH_IMAGE:
+            points, _ = unproject_depth_image(
+                depth_t, self.intrinsics, p.fusion.depth_scale, p.fusion.far_clip_distance
+            )
+            verts, _, faces = mesh_from_depth_image(
+                points.cpu().numpy(), max_triangle_edge_distance=2 * g.node_coverage
+            )
+            erosion = vertex_erosion_mask(verts, faces, g.erosion_num_iterations, g.erosion_min_neighbors)
+            nodes, _ = sample_nodes(verts, erosion, g.node_coverage, use_only_non_eroded=True)
+            if len(nodes) < g.anchor_count:
+                # tiny scene: sample without erosion
+                nodes, _ = sample_nodes(verts, None, g.node_coverage, use_only_non_eroded=False)
+        else:
+            raise NotImplementedError(f"graph generation mode {mode}")
         self.warp_field = HierarchicalGraphWarpField.build(
             nodes,
-            node_coverage=p.graph.node_coverage,
-            layer_count=min(p.graph.layer_count, _max_feasible_layers(len(nodes))),
-            max_vertex_degree=p.graph.max_vertex_degree,
-            anchor_count=p.graph.anchor_count,
-            minimum_valid_anchor_count=p.graph.minimum_valid_anchor_count,
-            threshold_nodes_by_distance=p.graph.minimum_valid_anchor_count > 0,
+            node_coverage=g.node_coverage,
+            layer_count=min(g.layer_count, _max_feasible_layers(len(nodes))),
+            max_vertex_degree=g.max_vertex_degree,
+            anchor_count=g.anchor_count,
+            minimum_valid_anchor_count=g.minimum_valid_anchor_count,
+            threshold_nodes_by_distance=g.minimum_valid_anchor_count > 0,
             coverage_method=NodeCoverageMethod.FIXED,
             device=self.device,
         )
@@ -186,17 +264,72 @@ class FusionPipeline:
             verts, faces, self._mesh_v_cap, self._mesh_t_cap
         )
         self.canonical_triangle_count = min(tc, self._mesh_t_cap)
+        self._canonical_soup_np = None
+
+    @property
+    def canonical_mesh_soup(self) -> np.ndarray:
+        """Host-side f32[T, 3, 3] triangle soup of the canonical mesh
+        (telemetry and results; fetched lazily)."""
+        if self._canonical_soup_np is None:
+            verts = self.canonical_vertices.cpu().numpy()
+            faces = self.canonical_triangles[: self.canonical_triangle_count].long().cpu().numpy()
+            self._canonical_soup_np = verts[faces]
+        return self._canonical_soup_np
+
+    def warped_mesh_soup(self) -> np.ndarray:
+        """The canonical mesh forward-warped by the current field, as a
+        host-side f32[T, 3, 3] triangle soup."""
+        warped = self.warp_field.warp_points(self.canonical_vertices).cpu().numpy()
+        faces = self.canonical_triangles[: self.canonical_triangle_count].long().cpu().numpy()
+        return warped[faces]
+
+    def camera_state(self) -> dict:
+        """What a checkpoint needs to resume the camera: pose, previous depth
+        image and frame counter."""
+        return {
+            "extrinsics": self.extrinsics,
+            "previous_depth": self.previous_depth,
+            "frames_processed": self.frames_processed,
+        }
+
+    def restore_camera_state(self, state: dict) -> None:
+        self.extrinsics = torch.as_tensor(state["extrinsics"], dtype=torch.float32, device=self.device)
+        previous = state.get("previous_depth")
+        self.previous_depth = None if previous is None else torch.as_tensor(previous, device=self.device)
+        self.frames_processed = int(state["frames_processed"])
 
     def enable_spmd(self, mesh) -> None:
         raise NotImplementedError("the SPMD frame loop is not ported yet (ROADMAP A17)")
 
     # -- subsequent frames ---------------------------------------------------
 
-    def process_frame(self, depth: np.ndarray, color: np.ndarray | None) -> dict:
+    def process_frame(self, depth: np.ndarray, color: np.ndarray | None, prior_flow=None) -> dict:
+        if prior_flow is not None:
+            raise NotImplementedError("prior_flow feeds the neural tracking prior, not ported yet (ROADMAP A12)")
         p = self.params
+        use_rigid = p.alignment.use_rigid_alignment
         self.frames_processed += 1
         depth_t = self._frame(depth)
-        points, mask = observed_points(depth_t, self.intrinsics, p.fusion.depth_scale, p.fusion.far_clip_distance)
+
+        # rigid stage: frame-to-frame point-to-plane ICP accumulates the
+        # camera pose; observations move into the canonical camera before
+        # the non-rigid fit
+        rigid_rmse = torch.zeros((), dtype=torch.float32, device=self.device)
+        if use_rigid and self.previous_depth is not None:
+            delta, rigid_rmse = rigid_odometry.rigid_odometry_multi_scale(
+                self.previous_depth,
+                depth_t,
+                self.intrinsics,
+                depth_scale=p.fusion.depth_scale,
+                depth_max=p.fusion.far_clip_distance,
+            )
+            self.extrinsics = delta @ self.extrinsics
+        self.previous_depth = depth_t
+        pose = self.extrinsics if use_rigid else None
+
+        points, mask = observed_points(
+            depth_t, self.intrinsics, pose, p.fusion.depth_scale, p.fusion.far_clip_distance
+        )
         self.warp_field, diagnostics = fit_to_image(
             self.warp_field,
             self.canonical_vertices,
@@ -220,30 +353,34 @@ class FusionPipeline:
                 max_active,
                 p.fusion.depth_scale,
                 p.fusion.far_clip_distance,
+                post_warp_extrinsics=pose,
             )
         else:
             n_intersecting = torch.zeros((), dtype=torch.int64, device=self.device)
         self._refresh_canonical_mesh()
+        if self.telemetry is not None:
+            self.telemetry.record_gn_iterations(
+                self.frames_processed,
+                diagnostics["data_loss"],
+                diagnostics["arap_loss"],
+                diagnostics["node_translations_per_iteration"],
+                self.warp_field.node_positions,
+            )
         metrics = {
             "data_loss": diagnostics["data_loss"],
             "arap_loss": diagnostics["arap_loss"],
             "active_blocks": n_intersecting,
+            "rigid_rmse": rigid_rmse,
             "valid_solve": diagnostics["valid_solve"],
             "pixel_cap_kept_fraction": diagnostics["pixel_cap_kept_fraction"][-1],
+            # the binned rasterizer's overflow per GN iteration (the port's
+            # own counters: the JAX fitter does not report it)
             "dropped_large_faces": diagnostics["dropped_large_faces"],
             "dropped_bin_entries": diagnostics["dropped_bin_entries"],
         }
         if not p.fusion.sync_frame_metrics:
             return metrics
         return resolve_frame_metrics(metrics)
-
-
-def run_fusion(*args, **kwargs):
-    """The sequence driver with telemetry and checkpoints: not ported yet."""
-    raise NotImplementedError(
-        "run_fusion (telemetry, checkpoints, CLI) is not ported yet (ROADMAP A15); "
-        "drive FusionPipeline.initialize / process_frame directly"
-    )
 
 
 def _parse_iteration_modes(spec: str) -> tuple:
@@ -270,6 +407,7 @@ def resolve_frame_metrics(metrics: dict) -> dict:
     out["data_loss"] = [float(x) for x in metrics["data_loss"]]
     out["arap_loss"] = [float(x) for x in metrics["arap_loss"]]
     out["active_blocks"] = int(metrics["active_blocks"])
+    out["rigid_rmse"] = float(metrics["rigid_rmse"])
     out["valid_solve"] = [bool(x) for x in metrics["valid_solve"]]
     out["pixel_cap_kept_fraction"] = float(metrics["pixel_cap_kept_fraction"])
     out["dropped_large_faces"] = [int(x) for x in metrics["dropped_large_faces"]]
@@ -277,10 +415,36 @@ def resolve_frame_metrics(metrics: dict) -> dict:
     return out
 
 
-def observed_points(depth, intrinsics, depth_scale: float, far_clip: float):
-    """Depth -> observed point image + mask (canonical camera = current
-    camera: rigid odometry is not ported)."""
-    return unproject_depth_image(depth, intrinsics, depth_scale, far_clip)
+_CROP_NODE_CHUNK = 32  # nodes per distance pass: 118 MB of differences at 480x640
+
+
+def crop_depth_to_coverage(depth, nodes, intrinsics, depth_scale: float, far_clip: float, radius: float):
+    """Zero the depth pixels farther than ``radius`` from every graph node.
+
+    Loaded graphs come from a masked subject; their nodes' coverage region
+    stands in for that mask, so the first frame integrates the subject only.
+    The nearest-node squared distance is a minimum over chunks of nodes."""
+    points, mask = unproject_depth_image(depth, intrinsics, depth_scale, far_clip)
+    flat = points.reshape(-1, 3)
+    best = torch.full((flat.shape[0],), torch.inf, dtype=torch.float32, device=flat.device)
+    for s in range(0, nodes.shape[0], _CROP_NODE_CHUNK):
+        d2 = torch.sum((flat[:, None, :] - nodes[None, s : s + _CROP_NODE_CHUNK, :]) ** 2, dim=-1)
+        best = torch.minimum(best, torch.amin(d2, dim=1))
+    r = torch.full((), radius, dtype=torch.float32, device=flat.device)
+    keep = mask & (best.reshape(depth.shape) <= r * r)
+    return torch.where(keep, depth, 0).to(depth.dtype)
+
+
+def observed_points(depth, intrinsics, extrinsics, depth_scale: float, far_clip: float):
+    """Depth -> observed point image + mask, in the canonical camera: the
+    inverse of ``extrinsics`` (canonical -> current camera) moves the valid
+    points; None keeps the current camera."""
+    points, mask = unproject_depth_image(depth, intrinsics, depth_scale, far_clip)
+    if extrinsics is not None:
+        inv = torch.linalg.inv_ex(extrinsics)[0]
+        moved = transform_points(points.reshape(-1, 3), inv).reshape(points.shape)
+        points = torch.where(mask[..., None], moved, 0.0)
+    return points, mask
 
 
 def volume_update(
@@ -292,13 +456,19 @@ def volume_update(
     max_active: int,
     depth_scale: float,
     far_clip: float,
+    post_warp_extrinsics=None,
 ):
     """The per-frame TSDF update: block discovery, sleeve activation,
-    re-discovery, active-list compaction, non-rigid integration. Returns the
-    new volume and the number of intersecting blocks."""
-    intersecting = volume.find_blocks_intersecting_truncation_region(depth, field, intrinsics)
+    re-discovery, active-list compaction, non-rigid integration (through the
+    field, then the camera pose). Returns the new volume and the number of
+    intersecting blocks."""
+    intersecting = volume.find_blocks_intersecting_truncation_region(
+        depth, field, intrinsics, post_warp_extrinsics=post_warp_extrinsics
+    )
     volume = volume.activate_sleeve_blocks(intersecting)
-    intersecting = volume.find_blocks_intersecting_truncation_region(depth, field, intrinsics)
+    intersecting = volume.find_blocks_intersecting_truncation_region(
+        depth, field, intrinsics, post_warp_extrinsics=post_warp_extrinsics
+    )
     active_slots, n_active = compact_mask_indices(intersecting, max_active, fill_value=0)
     active_valid = intersecting[active_slots] & (
         torch.arange(max_active, device=volume.device) < n_active
@@ -312,6 +482,7 @@ def volume_update(
         intrinsics,
         color=(color.to(torch.float32) / 255.0) if color is not None else None,
         normals=point_image_normals(raw_points),
+        post_warp_extrinsics=post_warp_extrinsics,
     )
     return volume, torch.sum(intersecting)
 
@@ -341,3 +512,127 @@ def _max_feasible_layers(node_count: int) -> int:
     if node_count < 24:
         return 2
     return 4
+
+
+def run_fusion(
+    sequence,
+    params: Parameters,
+    run_name: str | None = None,
+    checkpoint_dir: str | None = None,
+    checkpoint_every: int = 0,
+    resume: bool = False,
+    device=None,
+) -> FusionResult:
+    """Fuse a whole sequence on ``device`` (the CUDA card unless the caller
+    passes ``device="cpu"``) with telemetry, a checkpoint after every
+    ``checkpoint_every``-th frame and, with ``resume``, a restart after the
+    checkpoint's frame."""
+    pipeline = FusionPipeline(params, sequence.intrinsics, device=device)
+    telemetry = TelemetryRecorder(params.telemetry, run_name)
+    pipeline.telemetry = telemetry
+    resume_after = -1
+    if resume and checkpoint_dir is not None:
+        volume, field, resume_after, mesh_state, camera_state = load_fusion_checkpoint(
+            checkpoint_dir, pipeline.device
+        )
+        pipeline.volume = volume
+        pipeline.warp_field = field
+        if camera_state is not None:
+            pipeline.restore_camera_state(camera_state)
+        if mesh_state is not None:
+            # the capacity buckets and lagged counts, so the resumed run's
+            # shapes (and thus its math) reproduce the uninterrupted run
+            pipeline._mesh_v_cap = int(mesh_state["v_cap"])
+            pipeline._mesh_t_cap = int(mesh_state["t_cap"])
+            pipeline._count_host = tuple(mesh_state["count_host"])
+            pipeline._refresh_canonical_mesh()
+        else:
+            pipeline._refresh_canonical_mesh(sync=True)
+    first = resume_after < 0
+    for frame in sequence:
+        if frame.index <= resume_after:
+            continue
+        if first:
+            first = False
+            frame_graph = None
+            if params.fusion.graph_generation_mode == GraphGenerationMode.FIRST_FRAME_LOADED_GRAPH and hasattr(
+                sequence, "get_frame_graph"
+            ):
+                frame_graph = sequence.get_frame_graph(frame.index)
+            pipeline.initialize(frame.depth, frame.color, frame_graph=frame_graph)
+            telemetry.record_frame(frame.index, nodes=pipeline.warp_field.num_nodes)
+        else:
+            metrics = pipeline.process_frame(frame.depth, frame.color)
+            telemetry.record_frame(frame.index, **metrics)
+            telemetry.record_meshes(
+                frame.index, canonical=pipeline.canonical_mesh_soup, warped=pipeline.warped_mesh_soup()
+            )
+        if checkpoint_dir is not None and checkpoint_every > 0 and (frame.index + 1) % checkpoint_every == 0:
+            save_fusion_checkpoint(
+                checkpoint_dir,
+                pipeline.volume,
+                pipeline.warp_field,
+                frame.index,
+                mesh_state={
+                    "v_cap": pipeline._mesh_v_cap,
+                    "t_cap": pipeline._mesh_t_cap,
+                    "count_host": list(pipeline._count_host),
+                },
+                camera_state=pipeline.camera_state(),
+            )
+    summary = telemetry.finish()
+    return FusionResult(
+        warp_field=pipeline.warp_field,
+        volume=pipeline.volume,
+        canonical_mesh=pipeline.canonical_mesh_soup,
+        summary=summary,
+    )
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    from dynamicfuion_python_tpu_torch.utils.config import load_config
+
+    seq_arg = "synthetic"
+    overrides = []
+    yaml_path = None
+    n_frames = 5
+    size = (240, 320)
+    device = None  # the CUDA card
+    it = iter(argv)
+    for arg in it:
+        if arg == "--sequence":
+            seq_arg = next(it)
+        elif arg == "--config":
+            yaml_path = next(it)
+        elif arg == "--frames":
+            n_frames = int(next(it))
+        elif arg == "--size":
+            h, w = next(it).split("x")
+            size = (int(h), int(w))
+        elif arg == "--device":
+            device = next(it)
+        else:
+            overrides.append(arg)
+    params = load_config(Parameters, yaml_path, overrides)
+
+    if seq_arg == "synthetic":
+        sequence = SyntheticBendingPlaneSequence(frame_count=n_frames, image_size=size, focal=min(size) * 1.4)
+    else:
+        until = params.fusion.run_until_frame
+        sequence = FrameSequenceDataset(
+            seq_arg,
+            start_at_frame=params.fusion.start_at_frame,
+            run_until_frame=None if until < 0 else until,
+            far_clip_mm=int(params.fusion.far_clip_distance * 1000),
+        )
+    result = run_fusion(sequence, params, device=device)
+    print(
+        f"fusion done: {result.summary['frame_count']} frames, "
+        f"{len(result.canonical_mesh)} triangles in canonical mesh"
+    )
+    return result
+
+
+if __name__ == "__main__":
+    main()

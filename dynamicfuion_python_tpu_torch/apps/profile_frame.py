@@ -9,8 +9,10 @@ same state: untraced on a copy of the pipeline (its wall time), and traced.
 Prints one JSON line: both wall times, the summed device time of the traced
 frame's kernels, the device's idle share of the untraced frame (and of the
 traced one, which the profiler's host overhead inflates), the hand-written
-kernels' device time per launch, and the operators with the most device
-time. ``--out`` also receives the Chrome trace.
+kernels' device time per launch, the rigid odometry stage (its own traced
+call on the last frame's depth pair: device time of its kernels and CUDA-event
+time) and the operators with the most device time. ``--out`` also receives
+the Chrome trace.
 """
 
 from __future__ import annotations
@@ -26,16 +28,16 @@ import torch
 
 from dynamicfuion_python_tpu_torch.apps.fusion_pipeline import FusionPipeline
 from dynamicfuion_python_tpu_torch.data.frame_sequence import SyntheticBendingPlaneSequence
+from dynamicfuion_python_tpu_torch.ops.rigid_odometry import rigid_odometry_multi_scale
 from dynamicfuion_python_tpu_torch.settings import Parameters
 from dynamicfuion_python_tpu_torch.utils.config import apply_overrides
 
-# default Parameters() with rigid odometry off (not ported; the scene's camera
-# is static) and the fitter's mesh bucket at 65536 triangles; the default
-# 2048-block table fills by frame 2 of this scene and more than the default
-# 1024 blocks intersect the band from frame 1 (see PERF.md), so both are
-# sized up and no block is dropped
+# default Parameters() (rigid odometry on) with capacity overrides only: the
+# fitter's mesh bucket at 65536 triangles; the default 2048-block table fills
+# by frame 2 of this scene and more than the default 1024 blocks intersect
+# the band from frame 1 (see PERF.md), so both are sized up and no block is
+# dropped
 SLICE_OVERRIDES = (
-    "alignment.use_rigid_alignment=false",
     "fusion.mesh_capacity_hint=65536",
     "tsdf.initial_block_count=4096",
     "tsdf.max_active_blocks=2048",
@@ -67,6 +69,48 @@ def make_slice(frame_count: int):
     return params, seq
 
 
+def device_busy_ms(events) -> float:
+    """Summed device time of the kernel rows of ``key_averages()`` (operator
+    rows would count their kernels twice)."""
+    return sum(
+        device_us(e) for e in events if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+    ) / 1e3
+
+
+def odometry_row(previous_depth, depth, intrinsics, params) -> dict:
+    """The rigid odometry stage alone on one depth pair: device time of its
+    kernels, its kernel launches and its costliest kernels (one traced call),
+    and CUDA-event time per call (after warm-up)."""
+
+    def call():
+        return rigid_odometry_multi_scale(
+            previous_depth, depth, intrinsics,
+            depth_scale=params.fusion.depth_scale, depth_max=params.fusion.far_clip_distance,
+        )
+
+    call()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        call()
+        torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        call()
+    end.record()
+    torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    top = sorted(kernels, key=lambda e: -device_us(e))[:5]
+    return {
+        "device_ms": device_busy_ms(events),
+        "event_ms": start.elapsed_time(end) / 5,
+        "kernel_launches": sum(e.count for e in kernels),
+        "top_kernels": [{"name": e.key[:80], "device_ms": device_us(e) / 1e3, "calls": e.count} for e in top],
+    }
+
+
 def _timed_frame(pipe, frame):
     t0 = time.perf_counter()
     metrics = pipe.process_frame(frame.depth, frame.color)
@@ -91,6 +135,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     # the same frame from the same state, untraced: the profiler's own host
     # cost stretches the traced frame's wall time
+    previous_depth = pipe.previous_depth
     _, untraced_s = _timed_frame(copy.deepcopy(pipe), frames[-1])
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -101,10 +146,8 @@ def main(argv=None) -> int:
         key=lambda r: -r["device_ms"],
     )
     kernel_rows = [r for r in rows if r["device_ms"] > 0]
-    # device busy time: kernel rows only (operator rows double-count them)
-    busy_ms = sum(
-        device_us(e) for e in events if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-    ) / 1e3
+    busy_ms = device_busy_ms(events)
+    odometry = odometry_row(previous_depth, pipe.previous_depth, pipe.intrinsics, params)
     hand = {
         k: {"device_ms_per_launch": r["device_ms"] / max(r["calls"], 1), "launches": r["calls"]}
         for k in HAND_KERNELS
@@ -127,6 +170,7 @@ def main(argv=None) -> int:
         "traced_device_idle_share": 1.0 - busy_ms / (wall_s * 1e3),
         "gn_iterations": len(metrics["data_loss"]),
         "hand_kernels": hand,
+        "rigid_odometry": odometry,
         "top_device_ops": kernel_rows[:25],
     }))
     return 0

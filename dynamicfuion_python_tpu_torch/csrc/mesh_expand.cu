@@ -11,8 +11,8 @@
 // 36 B of vertices and writes 36 B + 1 B, about 0.5 floating-point operations
 // per byte, far below the card's ~20 FLOP/B ridge for FP32. At the fitter's
 // 65,536 faces that is ~3.6 MB, ~1.1 us at 3.35 TB/s, about what the launch
-// itself costs; launch_floor (an empty kernel on the same grid) measures
-// the part of it no kernel body can remove.
+// itself costs; launch_floor (an empty kernel, launched on this kernel's
+// grid or on B1's) measures the part of it no kernel body can remove.
 //
 // Design: one thread per face computes its 9 floats and valid flag into
 // shared memory; the block then writes its faces' [THREADS, 9] rows and
@@ -85,7 +85,7 @@ mesh_expand_kernel(const float* __restrict__ verts, int num_verts,
   }
 }
 
-// An empty kernel, timed beside mesh_expand_kernel on the same grid.
+// An empty kernel, timed beside a kernel on that kernel's grid.
 __global__ void launch_floor_kernel() {}
 
 int blocks_for(int num_faces) { return (num_faces + THREADS - 1) / THREADS; }
@@ -102,9 +102,10 @@ extern "C" int mesh_expand(const float* verts, int num_verts, const int* tris, i
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int launch_floor(int num_faces, void* stream) {
-  if (num_faces > 0) {
-    launch_floor_kernel<<<blocks_for(num_faces), THREADS, 0, static_cast<cudaStream_t>(stream)>>>();
+// The empty kernel on a grid of `blocks` blocks of `threads` threads.
+extern "C" int launch_floor(int blocks, int threads, void* stream) {
+  if (blocks > 0) {
+    launch_floor_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
   }
   return static_cast<int>(cudaGetLastError());
 }

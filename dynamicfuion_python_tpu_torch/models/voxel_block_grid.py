@@ -18,7 +18,11 @@ import dataclasses
 import torch
 
 from dynamicfuion_python_tpu_torch.ops import voxel_block_hash as vbh
-from dynamicfuion_python_tpu_torch.ops.camera import project_points, unproject_depth_image
+from dynamicfuion_python_tpu_torch.ops.camera import (
+    project_points,
+    transform_points,
+    unproject_depth_image,
+)
 from dynamicfuion_python_tpu_torch.ops.compaction import compact_mask_indices
 from dynamicfuion_python_tpu_torch.ops.marching_cubes import marching_cubes
 from dynamicfuion_python_tpu_torch.ops.warp import blend_warp
@@ -99,13 +103,18 @@ class VoxelBlockGrid:
 
     # -- block discovery & activation ----------------------------------------
 
-    def compute_unique_block_coordinates(self, depth, intrinsics, stride: int = 4) -> torch.Tensor:
+    def compute_unique_block_coordinates(
+        self, depth, intrinsics, extrinsics=None, stride: int = 4
+    ) -> torch.Tensor:
         """Packed keys of the 27 blocks around each strided valid pixel's
         surface point (cube of half-size = truncation), deduplicated and
-        padded with EMPTY_KEY."""
+        padded with EMPTY_KEY. ``extrinsics`` (world -> camera) moves the
+        points into the world by its inverse."""
         points, mask = unproject_depth_image(depth, intrinsics, self.depth_scale, self.depth_max)
         points = points[::stride, ::stride].reshape(-1, 3)
         mask = mask[::stride, ::stride].reshape(-1)
+        if extrinsics is not None:
+            points = transform_points(points, torch.linalg.inv_ex(extrinsics)[0])
         trunc = self.sdf_truncation_distance
         offsets = _cube_offsets((-trunc, 0.0, trunc), torch.float32, self.device)
         cand = points[:, None, :] + offsets[None, :, :]
@@ -151,34 +160,41 @@ class VoxelBlockGrid:
 
     # -- integration ------------------------------------------------------------
 
-    def integrate(self, depth, intrinsics, color=None) -> "VoxelBlockGrid":
+    def integrate(self, depth, intrinsics, extrinsics=None, color=None) -> "VoxelBlockGrid":
         """Rigid TSDF fusion over all occupied blocks (psdf = depth - z,
-        normalized by truncation, running weighted average)."""
+        normalized by truncation, running weighted average); ``extrinsics``
+        maps world to camera."""
         slots = torch.arange(self.capacity, device=self.device)
         return self._integrate_impl(
-            slots, self.occupied_mask(), depth, intrinsics, color, warp=None
+            slots, self.occupied_mask(), depth, intrinsics, extrinsics, color, warp=None
         )
 
     def integrate_non_rigid(
         self, block_slots, block_slots_valid, warp_field, depth, intrinsics,
-        color=None, normals=None,
+        extrinsics=None, color=None, normals=None, post_warp_extrinsics=None,
     ) -> "VoxelBlockGrid":
         """Non-rigid fusion through the warp field over the given block list;
         ``normals`` f32[H, W, 3] rejects oblique readings (cosine <= 0.5).
-        The camera is the canonical one (rigid odometry is not ported)."""
+        ``extrinsics`` applies before warping (the field lives in the current
+        camera frame), ``post_warp_extrinsics`` after it (the field lives in
+        the canonical frame and the camera moves separately, as in the
+        pipeline)."""
         return self._integrate_impl(
-            block_slots, block_slots_valid, depth, intrinsics, color,
-            warp=warp_field, normals=normals,
+            block_slots, block_slots_valid, depth, intrinsics, extrinsics, color,
+            warp=warp_field, normals=normals, post_warp_extrinsics=post_warp_extrinsics,
         )
 
     def _integrate_impl(
-        self, slots, slots_valid, depth, intrinsics, color, warp, normals=None
+        self, slots, slots_valid, depth, intrinsics, extrinsics, color, warp, normals=None,
+        post_warp_extrinsics=None,
     ) -> "VoxelBlockGrid":
         r = self.block_resolution
         h, w = depth.shape
         trunc = self.sdf_truncation_distance
         slots = slots.long()
         cam = self._voxel_world_positions(slots).reshape(-1, 3)
+        if extrinsics is not None:
+            cam = transform_points(cam, extrinsics)
         if warp is not None:
             anchors, weights, anchor_valid = warp.compute_anchors(cam)
             warped = blend_warp(
@@ -188,6 +204,8 @@ class VoxelBlockGrid:
         else:
             anchor_valid = torch.ones(cam.shape[:1], dtype=torch.bool, device=self.device)
             warped = cam
+        if post_warp_extrinsics is not None:
+            warped = transform_points(warped, post_warp_extrinsics)
 
         uv, in_front = project_points(warped, intrinsics)
         u = torch.round(uv[..., 0]).to(torch.int64)
@@ -244,22 +262,29 @@ class VoxelBlockGrid:
     # -- block / truncation-region tests ----------------------------------------
 
     def find_blocks_intersecting_truncation_region(
-        self, depth, warp_field, intrinsics, downsample: int = 16
+        self, depth, warp_field, intrinsics, extrinsics=None, downsample: int = 16,
+        post_warp_extrinsics=None,
     ) -> torch.Tensor:
         """bool[Cap]: occupied blocks whose warped extent may intersect the
         depth frame's truncation band (warp the 8 block corners, compare the
-        AABB against the depth range behind its pixel footprint +- trunc)."""
+        AABB against the depth range behind its pixel footprint +- trunc).
+        ``extrinsics`` / ``post_warp_extrinsics`` move the corners before /
+        after warping, as in :meth:`integrate_non_rigid`."""
         side = self.block_side()
         dev = self.device
         coords = self.block_coordinates().to(torch.float32)
         corner_offsets = _cube_offsets((0, 1), torch.float32, dev)
         corners = (coords[:, None, :] + corner_offsets[None]) * side
         flat = corners.reshape(-1, 3)
+        if extrinsics is not None:
+            flat = transform_points(flat, extrinsics)
         anchors, weights, _ = warp_field.compute_anchors(flat)
         warped = blend_warp(
             flat, warp_field.node_positions, warp_field.node_rotations,
             warp_field.node_translations, anchors, weights,
         )
+        if post_warp_extrinsics is not None:
+            warped = transform_points(warped, post_warp_extrinsics)
         warped = warped.reshape(-1, 8, 3)
         uv, in_front = project_points(warped.reshape(-1, 3), intrinsics)
         uv = uv.reshape(-1, 8, 2)

@@ -19,6 +19,7 @@ import torch
 from dynamicfuion_python_tpu_torch.ops.anchors import compute_anchors_euclidean
 from dynamicfuion_python_tpu_torch.ops.knn import knn
 from dynamicfuion_python_tpu_torch.ops.linalg import axis_angle_to_matrix
+from dynamicfuion_python_tpu_torch.ops.warp import blend_warp
 from dynamicfuion_python_tpu_torch.utils.device import resolve_device
 
 
@@ -107,6 +108,13 @@ class WarpField:
             node_coverage_squared=self.node_coverage_weights_squared,
             minimum_valid_anchor_count=self.minimum_valid_anchor_count,
             use_threshold=self.threshold_nodes_by_distance,
+        )
+
+    def warp_points(self, points: torch.Tensor) -> torch.Tensor:
+        """Points f32[P, 3] warped by the blended node transforms."""
+        anchors, weights, _ = self.compute_anchors(points)
+        return blend_warp(
+            points, self.node_positions, self.node_rotations, self.node_translations, anchors, weights
         )
 
     def rotate_nodes(self, rotation_deltas: torch.Tensor) -> "WarpField":

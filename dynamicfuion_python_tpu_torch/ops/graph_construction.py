@@ -1,8 +1,10 @@
-"""Deformation-graph node sampling on meshes (host-side numpy, runs once
-per graph build). Port of the two functions of
-``dynamicfuion_python_tpu/ops/graph_construction.py`` that the default
-``FIRST_FRAME_EXTRACTED_MESH`` graph mode uses:
+"""Deformation-graph construction from meshes (host-side numpy, runs once
+per graph build). Port of the functions of
+``dynamicfuion_python_tpu/ops/graph_construction.py`` that the
+``FIRST_FRAME_EXTRACTED_MESH`` and ``FIRST_FRAME_DEPTH_IMAGE`` graph modes use:
 
+  - mesh from a depth image: each pixel square becomes up to two triangles
+    whose edges are all shorter than a limit;
   - erosion: iteratively drop faces any of whose vertices touch fewer than
     ``min_neighbors`` surviving faces; the mask marks vertices of surviving
     faces;
@@ -13,6 +15,48 @@ per graph build). Port of the two functions of
 from __future__ import annotations
 
 import numpy as np
+
+
+def mesh_from_depth_image(
+    point_image: np.ndarray,
+    max_triangle_edge_distance: float = 0.05,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Point image f32[H, W, 3] (z == 0 invalid) -> grid-connected mesh.
+
+    Each pixel square becomes up to two triangles (00-01-10 and 01-11-10
+    pixel order) whose edges must all be at most
+    ``max_triangle_edge_distance`` long; the winding makes normals face the
+    camera. Returns (vertices f32[V, 3], vertex_pixels i32[V, 2] as
+    (v_row, u_col), faces i32[F, 3]).
+    """
+    pts = np.asarray(point_image, np.float32)
+    h, w = pts.shape[:2]
+    valid = pts[..., 2] > 0
+
+    p00, p01, p10, p11 = pts[:-1, :-1], pts[1:, :-1], pts[:-1, 1:], pts[1:, 1:]
+    v00, v01, v10, v11 = valid[:-1, :-1], valid[1:, :-1], valid[:-1, 1:], valid[1:, 1:]
+
+    def edge_ok(a, b):
+        return np.linalg.norm(a - b, axis=-1) <= max_triangle_edge_distance
+
+    tri_a = v00 & v01 & v10 & edge_ok(p00, p01) & edge_ok(p00, p10) & edge_ok(p01, p10)
+    tri_b = v01 & v11 & v10 & edge_ok(p01, p11) & edge_ok(p01, p10) & edge_ok(p11, p10)
+
+    used = np.zeros((h, w), bool)
+    ya, xa = np.nonzero(tri_a)
+    used[ya, xa] = used[ya + 1, xa] = used[ya, xa + 1] = True
+    yb, xb = np.nonzero(tri_b)
+    used[yb + 1, xb] = used[yb + 1, xb + 1] = used[yb, xb + 1] = True
+
+    vert_index = np.full((h, w), -1, np.int64)
+    vy, vx = np.nonzero(used)
+    vert_index[vy, vx] = np.arange(len(vy))
+    vertices = pts[vy, vx]
+    vertex_pixels = np.stack([vy, vx], 1).astype(np.int32)
+    faces_a = np.stack([vert_index[ya, xa], vert_index[ya + 1, xa], vert_index[ya, xa + 1]], 1)
+    faces_b = np.stack([vert_index[yb + 1, xb], vert_index[yb + 1, xb + 1], vert_index[yb, xb + 1]], 1)
+    faces = np.concatenate([faces_a, faces_b]).astype(np.int32)
+    return vertices, vertex_pixels, faces
 
 
 def vertex_erosion_mask(

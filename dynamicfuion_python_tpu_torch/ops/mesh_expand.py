@@ -10,7 +10,8 @@ the identity.
 :func:`expand_project_faces` launches the CUDA kernel (``csrc/mesh_expand.cu``)
 for CUDA tensors and runs :func:`expand_project_faces_plain`, the same math
 in plain PyTorch, for CPU tensors. :func:`launch_floor` launches an empty
-kernel on the same grid, to time what the launch alone costs.
+kernel on a given grid (:func:`expand_grid` gives this kernel's), to time
+what a launch alone costs.
 """
 
 from __future__ import annotations
@@ -28,7 +29,13 @@ _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p,  # out, valid
     ctypes.c_void_p,  # stream
 ]
-_FLOOR_ARGTYPES = [ctypes.c_int, ctypes.c_void_p]  # num_faces, stream
+_FLOOR_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # blocks, threads, stream
+_THREADS = 256  # faces per block of the kernel
+
+
+def expand_grid(num_faces: int) -> tuple[int, int]:
+    """(blocks, threads per block) of the kernel's launch for ``num_faces``."""
+    return -(-num_faces // _THREADS), _THREADS
 
 
 def expand_project_faces_plain(
@@ -96,12 +103,12 @@ def expand_project_faces_cuda(
     return out, valid
 
 
-def launch_floor(num_faces: int, device) -> None:
-    """Launch the empty kernel of ``csrc/mesh_expand.cu`` on the grid that
-    :func:`expand_project_faces_cuda` uses for ``num_faces`` faces. For
-    timing only: it computes nothing and is counted nowhere."""
+def launch_floor(blocks: int, threads: int, device) -> None:
+    """Launch the empty kernel of ``csrc/mesh_expand.cu`` on a grid of
+    ``blocks`` blocks of ``threads`` threads. For timing only: it computes
+    nothing and is counted nowhere."""
     status = native.entry_point("mesh_expand", _FLOOR_ARGTYPES, "launch_floor")(
-        int(num_faces), native.stream_handle(device)
+        int(blocks), int(threads), native.stream_handle(device)
     )
     native.check(status, "launch_floor")
 

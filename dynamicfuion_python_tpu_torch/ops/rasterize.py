@@ -324,6 +324,12 @@ def rasterize_tiles_cuda(
     return face_out, depth_out, bary_out, dist_out
 
 
+def rasterize_tiles_grid(num_tiles: int, tile_size: int = 16) -> tuple[int, int]:
+    """(blocks, threads per block) of kernel B1's launch: one block per tile,
+    128 threads for tiles up to 16 px, 256 above (``csrc/rasterize_tiles.cu``)."""
+    return num_tiles, 128 if tile_size <= 16 else 256
+
+
 def rasterize_tiles_occupancy(tile_size: int = 16) -> int:
     """Resident blocks per SM of kernel B1 at ``tile_size`` (one block per
     tile), as the CUDA runtime reports it for the current card."""

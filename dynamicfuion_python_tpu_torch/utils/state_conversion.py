@@ -21,6 +21,7 @@ from dynamicfuion_python_tpu_torch.models.voxel_block_grid import VoxelBlockGrid
 from dynamicfuion_python_tpu_torch.models.warp_field import (
     HierarchicalGraphWarpField,
     NodeCoverageMethod,
+    WarpField,
 )
 from dynamicfuion_python_tpu_torch.utils.device import resolve_device
 
@@ -62,13 +63,16 @@ def _to_numpy(obj) -> dict:
     return out
 
 
-def warp_field_from_numpy(state: dict, device: str | torch.device | None = None) -> HierarchicalGraphWarpField:
-    """A ``HierarchicalGraphWarpField`` on ``device`` (the CUDA card unless
-    the caller passes ``device="cpu"``) from its arrays + static fields."""
-    return _from_numpy(HierarchicalGraphWarpField, state, resolve_device(device))
+def warp_field_from_numpy(state: dict, device: str | torch.device | None = None) -> WarpField:
+    """A warp field on ``device`` (the CUDA card unless the caller passes
+    ``device="cpu"``) from its arrays + static fields: a
+    ``HierarchicalGraphWarpField`` when the state has its ``edges``, else a
+    flat ``WarpField``."""
+    cls = HierarchicalGraphWarpField if "edges" in state else WarpField
+    return _from_numpy(cls, state, resolve_device(device))
 
 
-def warp_field_to_numpy(field: HierarchicalGraphWarpField) -> dict:
+def warp_field_to_numpy(field: WarpField) -> dict:
     return _to_numpy(field)
 
 

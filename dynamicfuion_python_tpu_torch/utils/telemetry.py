@@ -1,0 +1,175 @@
+"""Run telemetry: mesh recording (PLY), per-GN-iteration states, per-frame
+metrics (port of ``dynamicfuion_python_tpu/utils/telemetry.py``).
+
+A run writes into ``<telemetry.output_directory>/<run name>/``: canonical and
+warped triangle soups per frame, optional per-iteration GN states, and
+``metrics.json`` at the end. The rendered warped mesh needs the renderer,
+which is not ported yet (ROADMAP A10): turning it on raises.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+
+def _np(value) -> np.ndarray:
+    """A numpy array of a tensor on any device, or of anything array-like."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
+
+
+def _materialize_metrics(frames: list) -> list:
+    """Recorded frame metrics with every tensor or numpy value turned into
+    plain Python scalars / lists."""
+
+    def to_py(v):
+        if isinstance(v, (list, tuple)):
+            return [to_py(x) for x in v]
+        if isinstance(v, dict):
+            return {k: to_py(x) for k, x in v.items()}
+        if isinstance(v, np.generic):
+            return v.item()
+        if isinstance(v, (np.ndarray, torch.Tensor)):
+            arr = _np(v)
+            return arr.item() if arr.ndim == 0 else arr.tolist()
+        return v
+
+    return [to_py(entry) for entry in frames]
+
+
+def write_ply_triangle_soup(path: str | Path, triangles) -> None:
+    """Write a triangle soup f32[T, 3, 3] as a binary-little-endian PLY."""
+    tris = _np(triangles).astype(np.float32)
+    faces = np.arange(3 * len(tris), dtype=np.int32).reshape(-1, 3)
+    _write_ply(path, tris.reshape(-1, 3), faces)
+
+
+def _write_ply(path, verts, faces):
+    header = (
+        "ply\nformat binary_little_endian 1.0\n"
+        f"element vertex {len(verts)}\n"
+        "property float x\nproperty float y\nproperty float z\n"
+        f"element face {len(faces)}\n"
+        "property list uchar int vertex_indices\nend_header\n"
+    )
+    with open(path, "wb") as f:
+        f.write(header.encode())
+        f.write(verts.astype("<f4").tobytes())
+        face_block = np.empty((len(faces), 13), np.uint8)
+        face_block[:, 0] = 3
+        face_block[:, 1:] = faces.astype("<i4").view(np.uint8).reshape(-1, 12)
+        f.write(face_block.tobytes())
+
+
+def read_ply(path: str | Path) -> tuple[np.ndarray, np.ndarray]:
+    """Minimal reader for the files this module writes."""
+    with open(path, "rb") as f:
+        data = f.read()
+    header_end = data.index(b"end_header\n") + len(b"end_header\n")
+    header = data[:header_end].decode()
+    n_verts = int(header.split("element vertex ")[1].split("\n")[0])
+    n_faces = int(header.split("element face ")[1].split("\n")[0])
+    verts = np.frombuffer(data, "<f4", count=n_verts * 3, offset=header_end).reshape(-1, 3)
+    face_bytes = np.frombuffer(
+        data, np.uint8, count=n_faces * 13, offset=header_end + n_verts * 12
+    ).reshape(-1, 13)
+    faces = face_bytes[:, 1:].copy().view("<i4").reshape(-1, 3)
+    return verts.copy(), faces
+
+
+class TelemetryRecorder:
+    """Per-run output directory with toggled recorders."""
+
+    def __init__(self, config, run_name: str | None = None):
+        if config.record_rendered_warped_mesh:
+            raise NotImplementedError(
+                "telemetry.record_rendered_warped_mesh needs the mesh renderer, which is "
+                "not ported yet (ROADMAP A10)"
+            )
+        self.config = config
+        stamp = run_name or time.strftime("%y-%m-%d-%H-%M-%S")
+        self.run_dir = Path(config.output_directory) / stamp
+        self.run_dir.mkdir(parents=True, exist_ok=True)
+        self.frame_metrics: list[dict] = []
+        self._start_time = time.perf_counter()
+
+    def record_meshes(self, frame_index: int, canonical=None, warped=None):
+        if canonical is not None and self.config.record_canonical_meshes:
+            write_ply_triangle_soup(self.run_dir / f"{frame_index:06d}_canonical_mesh.ply", canonical)
+        if warped is not None and self.config.record_warped_meshes:
+            write_ply_triangle_soup(self.run_dir / f"{frame_index:06d}_warped_mesh.ply", warped)
+
+    def record_gn_iterations(
+        self,
+        frame_index: int,
+        data_losses,
+        arap_losses,
+        node_translations_per_iteration=None,
+        node_positions=None,
+    ):
+        """Per-GN-iteration losses + node translations and the node positions
+        they apply to."""
+        if not self.config.record_gn_point_clouds:
+            return
+        arrays = {
+            "data_losses": np.asarray([float(x) for x in data_losses], np.float32),
+            "arap_losses": np.asarray([float(x) for x in arap_losses], np.float32),
+        }
+        if node_translations_per_iteration is not None:
+            arrays["node_translations"] = _np(node_translations_per_iteration).astype(np.float32)
+        if node_positions is not None:
+            arrays["node_positions"] = _np(node_positions).astype(np.float32)
+        np.savez_compressed(self.run_dir / f"{frame_index:06d}_gn_iterations.npz", **arrays)
+
+    def record_correspondences(
+        self,
+        frame_index: int,
+        source_points=None,
+        target_matches=None,
+        correspondence_mask=None,
+        mask_prediction=None,
+    ):
+        """Correspondence sets + mask predictions of the neural tracking prior
+        (fed only by the prior, which is not ported yet: ROADMAP A12)."""
+        if not self.config.record_correspondences:
+            return
+        arrays = {}
+        if source_points is not None:
+            arrays["source_points"] = _np(source_points).astype(np.float32)
+        if target_matches is not None:
+            arrays["target_matches"] = _np(target_matches).astype(np.float32)
+        if correspondence_mask is not None:
+            arrays["correspondence_mask"] = _np(correspondence_mask).astype(bool)
+        if mask_prediction is not None:
+            arrays["mask_prediction"] = _np(mask_prediction).astype(np.float32)
+        if arrays:
+            np.savez_compressed(self.run_dir / f"{frame_index:06d}_correspondences.npz", **arrays)
+
+    def record_frame(self, frame_index: int, **metrics):
+        self.frame_metrics.append({"frame": frame_index, **metrics})
+        if self.config.print_frame_info:
+            print(f"[frame {frame_index}] {metrics}")
+
+    def finish(self) -> dict:
+        total = time.perf_counter() - self._start_time
+        fps = len(self.frame_metrics) / total if total > 0 else 0.0
+        # frames recorded with fusion.sync_frame_metrics=false hold device
+        # tensors: they cross to the host here, once
+        self.frame_metrics = _materialize_metrics(self.frame_metrics)
+        summary = {
+            "total_runtime_s": total,
+            "frames_per_second": fps,
+            "frame_count": len(self.frame_metrics),
+            "frames": self.frame_metrics,
+        }
+        if self.config.record_frame_metrics:
+            (self.run_dir / "metrics.json").write_text(json.dumps(summary, indent=1))
+        if self.config.print_runtime:
+            print(f"total runtime: {total:.2f} s for {len(self.frame_metrics)} frames ({fps:.2f} frames/s)")
+        return summary

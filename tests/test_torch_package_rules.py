@@ -44,11 +44,18 @@ def test_entry_points_need_a_card_unless_asked(monkeypatch):
         warp_field_to_numpy,
     )
 
+    from dynamicfuion_python_tpu_torch.apps.fusion_pipeline import main, run_fusion
+    from dynamicfuion_python_tpu_torch.data.frame_sequence import SyntheticBendingPlaneSequence
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    params = apply_overrides(Parameters(), ["alignment.use_rigid_alignment=false"])
+    params = Parameters()  # the default configuration, rigid odometry on
     k = np.eye(3, dtype=np.float32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FusionPipeline(params, k)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_fusion(SyntheticBendingPlaneSequence(frame_count=2, image_size=(16, 16)), params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--frames", "2", "--size", "16x16"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         VoxelBlockGrid.create(capacity=8)
     nodes = np.asarray([[0.0, 0.0, 1.0], [0.1, 0.0, 1.0]], np.float32)
@@ -61,25 +68,31 @@ def test_entry_points_need_a_card_unless_asked(monkeypatch):
     assert FusionPipeline(params, k, device="cpu").device.type == "cpu"
 
 
-def test_unported_options_are_refused():
-    from dynamicfuion_python_tpu_torch.apps.fusion_pipeline import FusionPipeline
+def test_unported_options_are_refused(tmp_path):
+    from dynamicfuion_python_tpu_torch.apps.fusion_pipeline import FusionPipeline, run_fusion
+    from dynamicfuion_python_tpu_torch.data.frame_sequence import SyntheticBendingPlaneSequence
     from dynamicfuion_python_tpu_torch.settings import Parameters
     from dynamicfuion_python_tpu_torch.utils.config import apply_overrides
 
     k = np.eye(3, dtype=np.float32)
-    with pytest.raises(NotImplementedError, match="A7"):
-        FusionPipeline(Parameters(), k, device="cpu")  # rigid alignment is the default
-    for override in ("fusion.use_neural_prior=true", "fusion.graph_generation_mode=FIRST_FRAME_DEPTH_IMAGE"):
-        params = apply_overrides(Parameters(), ["alignment.use_rigid_alignment=false", override])
-        with pytest.raises(NotImplementedError):
-            FusionPipeline(params, k, device="cpu")
-    pipe = FusionPipeline(apply_overrides(Parameters(), ["alignment.use_rigid_alignment=false"]), k, device="cpu")
+    refused = {
+        "fusion.use_neural_prior=true": "A12",
+        "fusion.tracking_span_mode=PREVIOUS_TO_CURRENT": "A12",
+        "alignment.data_term_impl=fast": "A5b",
+    }
+    for override, item in refused.items():
+        with pytest.raises(NotImplementedError, match=item):
+            FusionPipeline(apply_overrides(Parameters(), [override]), k, device="cpu")
+    pipe = FusionPipeline(Parameters(), k, device="cpu")  # the default configuration runs
     with pytest.raises(NotImplementedError, match="A17"):
         pipe.enable_spmd(None)
-    from dynamicfuion_python_tpu_torch.apps.fusion_pipeline import run_fusion
-
-    with pytest.raises(NotImplementedError, match="A15"):
-        run_fusion(None, Parameters())
+    with pytest.raises(NotImplementedError, match="A12"):
+        pipe.process_frame(np.zeros((4, 4), np.uint16), None, prior_flow=np.zeros((4, 4, 2), np.float32))
+    params = apply_overrides(Parameters(), [
+        "telemetry.record_rendered_warped_mesh=true", f"telemetry.output_directory={tmp_path}",
+    ])
+    with pytest.raises(NotImplementedError, match="A10"):
+        run_fusion(SyntheticBendingPlaneSequence(frame_count=2, image_size=(16, 16)), params, device="cpu")
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

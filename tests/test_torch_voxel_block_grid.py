@@ -96,3 +96,55 @@ def test_integrate_non_rigid_from_converted_field(scene, rng):
     assert (np.asarray(jv2.weight) != np.asarray(jv.weight)).any()
     np.testing.assert_allclose(pv2.tsdf.numpy(), np.asarray(jv2.tsdf), atol=1e-5)
     np.testing.assert_allclose(pv2.color.numpy(), np.asarray(jv2.color), atol=1e-5)
+
+
+def _pose() -> np.ndarray:
+    """A small rigid camera motion (0.01 rad about y, ~1 cm)."""
+    c, s = np.cos(0.01), np.sin(0.01)
+    pose = np.eye(4)
+    pose[:3, :3] = [[c, 0, s], [0, 1, 0], [-s, 0, c]]
+    pose[:3, 3] = [0.005, -0.003, 0.01]
+    return pose.astype(np.float32)
+
+
+def test_camera_pose_arguments(scene, rng):
+    """extrinsics (world -> camera, before the warp) and post_warp_extrinsics
+    (after it) in block discovery, rigid and non-rigid integration."""
+    jv, frames, k = scene["jv"], scene["frames"], scene["k"]
+    pose = _pose()
+    jpose, ppose = jnp.asarray(pose), torch.as_tensor(pose)
+    pv = voxel_block_grid_from_numpy(_state(jv), device="cpu")
+    d, c = frames[1].depth, frames[1].color
+    jd, pd, jk, pk = jnp.asarray(d), torch.as_tensor(d.astype(np.int32)), jnp.asarray(k), torch.as_tensor(k)
+
+    jkeys = np.asarray(jv.compute_unique_block_coordinates(jd, jk, extrinsics=jpose, stride=2))
+    pkeys = pv.compute_unique_block_coordinates(pd, pk, extrinsics=ppose, stride=2).numpy()
+    np.testing.assert_array_equal(pkeys, jkeys)
+    assert not np.array_equal(jkeys, np.asarray(jv.compute_unique_block_coordinates(jd, jk, stride=2)))
+
+    jr = jv.integrate(jd, jk, extrinsics=jpose)
+    pr = pv.integrate(pd, pk, extrinsics=ppose)
+    np.testing.assert_array_equal(pr.weight.numpy(), np.asarray(jr.weight))
+    np.testing.assert_allclose(pr.tsdf.numpy(), np.asarray(jr.tsdf), atol=1e-5)
+
+    verts = np.asarray(j_extract(jv, 16384, 8192, 0.0)[0])[:2000]
+    jf = JH.build(
+        verts[::25], node_coverage=0.12, layer_count=2, anchor_count=4,
+        minimum_valid_anchor_count=3, threshold_nodes_by_distance=True,
+        coverage_method=NodeCoverageMethod.FIXED,
+    )
+    jf = jf.replace(node_translations=jnp.asarray(rng.normal(0, 0.003, (jf.num_nodes, 3)).astype(np.float32)))
+    pf = warp_field_from_numpy(_state(jf), device="cpu")
+    for kwargs in ({"extrinsics": True}, {"post_warp_extrinsics": True}):
+        jkw = {name: jpose for name in kwargs}
+        pkw = {name: ppose for name in kwargs}
+        jm = jv.find_blocks_intersecting_truncation_region(jd, jf, jk, **jkw)
+        pm = pv.find_blocks_intersecting_truncation_region(pd, pf, pk, **pkw)
+        np.testing.assert_array_equal(pm.numpy(), np.asarray(jm))
+        slots = np.nonzero(np.asarray(jm))[0].astype(np.int32)
+        valid = np.ones(len(slots), bool)
+        jn = jv.integrate_non_rigid(jnp.asarray(slots), jnp.asarray(valid), jf, jd, jk, **jkw)
+        pn = pv.integrate_non_rigid(torch.as_tensor(slots), torch.as_tensor(valid), pf, pd, pk, **pkw)
+        np.testing.assert_array_equal(pn.weight.numpy(), np.asarray(jn.weight))
+        assert (np.asarray(jn.weight) != np.asarray(jv.weight)).any()
+        np.testing.assert_allclose(pn.tsdf.numpy(), np.asarray(jn.tsdf), atol=1e-5)
