@@ -27,8 +27,25 @@ non-zero, on any failure):
      run_fusion resumes from a checkpoint to the full run's result;
   6. reference: a small 3-frame scene (odometry on frame 2) through the
      kernels on the card and through the plain versions on the CPU must
-     agree.
-The last line is {"ok": true, "device": {...}}. Without a CUDA device the
+     agree;
+  7. data terms: the fitter's "face", "fast" and "autodiff" data terms on
+     the main path's last GN inputs must agree (the JAX package's parity
+     tolerances), each timed with CUDA events;
+  8. neural prior: the 448x640 shifted plane (3 frames, 8 cm per frame, its
+     oracle flow, rigid odometry off) twice, FIRST_TO_CURRENT with Euclidean
+     pixel anchors and PREVIOUS_TO_CURRENT with shortest-path anchors: the
+     prior must be valid with > 1000 matches on every fitted frame, every GN
+     solve valid and the median node x-translation within 2 cm of the
+     cumulative shift;
+  9. DeformNet: the 448x640 bending plane (rigid odometry on) with the prior
+     loading a seeded DeformNet checkpoint: the network must run on every
+     fitted frame, every output be finite, and its forward on the card equal
+     its forward on the CPU; the forward, its point-cloud GN and the prior's
+     share of the frame are timed.
+Phases 2, 8 and 9 each set the kernels' launch counts to 0 before they run
+and read them after: both kernels must have launched in each. The kernels
+line (phase 3's measurements with each path's launch counts) comes next, and
+the last line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits non-zero and prints no result.
 """
 
@@ -115,16 +132,22 @@ def device_ms_per_launch(fns: dict, iters: int) -> dict:
 
 
 class LastCall:
-    """Replaces ``module.name`` by a function that records the arguments of
-    its last call and counts its calls, then calls the original;
-    :meth:`restore` puts it back."""
+    """Replaces ``module.name`` (or ``module[name]`` of a dict) by a function
+    that records the arguments of its last call and counts its calls, then
+    calls the original; :meth:`restore` puts it back."""
 
     def __init__(self, module, name: str):
         self.module, self.name = module, name
-        self.fn = getattr(module, name)
+        self.fn = module[name] if isinstance(module, dict) else getattr(module, name)
         self.args, self.kwargs = None, None
         self.calls = 0
-        setattr(module, name, self)
+        self._set(self)
+
+    def _set(self, fn) -> None:
+        if isinstance(self.module, dict):
+            self.module[self.name] = fn
+        else:
+            setattr(self.module, self.name, fn)
 
     def __call__(self, *args, **kwargs):
         self.args, self.kwargs = args, kwargs
@@ -132,7 +155,38 @@ class LastCall:
         return self.fn(*args, **kwargs)
 
     def restore(self) -> None:
-        setattr(self.module, self.name, self.fn)
+        self._set(self.fn)
+
+
+class Timed:
+    """Wraps a callable; each call is bracketed by ``cuda.synchronize()`` and
+    its host seconds appended to :attr:`seconds`."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.seconds: list[float] = []
+
+    def __call__(self, *args, **kwargs):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.seconds.append(time.perf_counter() - t0)
+        return out
+
+
+def max_rel_err(got, want) -> float:
+    """max |got - want| over max |want| (1e-12 at least)."""
+    want = want.detach().float().cpu()
+    return float((got.detach().float().cpu() - want).abs().max()) / max(float(want.abs().max()), 1e-12)
+
+
+def violations(got, want, rtol: float, atol: float) -> int:
+    """Entries with |got - want| > atol + rtol |want|."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return int(((got - want).abs() > atol + rtol * want.abs()).sum())
 
 
 def phase_build():
@@ -180,7 +234,8 @@ def phase_main_path():
     # frame) and last depth pair, for phase 4
     last = {"mesh_expand": LastCall(fitter, "expand_project_faces"),
             "rasterize_tiles": LastCall(rasterize, "rasterize_tiles"),
-            "odometry": LastCall(rigid_odometry, "rigid_odometry_multi_scale")}
+            "odometry": LastCall(rigid_odometry, "rigid_odometry_multi_scale"),
+            "data_term": LastCall(fitter._DATA_TERMS, "face")}
     native.reset_launch_counts()
     pipe = FusionPipeline(params, seq.intrinsics)  # the default device: the card
     t0 = time.perf_counter()
@@ -342,7 +397,7 @@ def phase_kernels(last, launches, fitted_frames):
             "library_ms": None,
         },
     ]
-    emit({"kernels": kernels})
+    return kernels
 
 
 def wavy_motion_scene(height: int = 480, width: int = 640):
@@ -501,6 +556,272 @@ def phase_reference():
           "frames": len(out["cuda"]), **pose_summary(poses["cuda"])})
 
 
+def phase_data_terms(data_term_call):
+    """The fitter's three data terms on the main path's last GN inputs, on
+    the card. Only "face" compacts pixels: at the configured fraction where
+    its cap is above the covered-pixel count, else at 0 (no row dropped),
+    so the three compute the same sums."""
+    import dataclasses
+
+    import torch
+
+    from dynamicfuion_python_tpu_torch.models import fitter
+
+    args = list(data_term_call.args)
+    config, frag_faces, ref_mask = args[11], args[7], args[9]
+    total = frag_faces.numel()
+    covered = int(((frag_faces.reshape(-1) >= 0) & ref_mask.reshape(-1)).sum())
+    frac = config.pixel_compaction_fraction
+    cap = min(total, ((int(total * frac) + 1023) // 1024) * 1024)
+    face_frac = frac if cap > covered else 0.0
+    call_args = args[:11] + [dataclasses.replace(config, pixel_compaction_fraction=face_frac)] + args[12:]
+    out, ms = {}, {}
+    with torch.no_grad():
+        for name in ("face", "fast", "autodiff"):
+            fn = fitter._DATA_TERMS[name]
+            out[name] = fn(*call_args)
+            ms[name] = cuda_time_ms(lambda fn=fn: fn(*call_args), 3, warmup=1)
+    row = {"phase": "data_terms", "pixels": total, "covered_pixels": covered, "compaction_cap": cap,
+           "face_fraction": face_frac, "ms": ms, "nodes": args[12]}
+    for a, b in (("face", "fast"), ("face", "autodiff"), ("fast", "autodiff")):
+        (ha, ga, la), (hb, gb, lb) = out[a], out[b]
+        key = f"{a}_vs_{b}"
+        # the JAX package's parity tolerances (tests/test_fitter.py:408-426):
+        # loss rtol 1e-5, H and g rtol 1e-4 and atol 1e-5, the atol scaled
+        # by the largest entry where that is above 1. That test's fixture has
+        # H entries up to ~500; here ~1 px faces of 10^5 pixels leave f32
+        # cancellation noise of ~1e-6 of the largest entry in entries near
+        # zero, which an absolute 1e-5 counts ("strict_violations")
+        h_max, g_max = float(hb.abs().max()), float(gb.abs().max())
+        h_atol, g_atol = 1e-5 * max(1.0, h_max), 1e-5 * max(1.0, g_max)
+        row[key] = {"loss_rel": abs(float(la) - float(lb)) / max(abs(float(lb)), 1e-30),
+                    "h_max": h_max, "g_max": g_max,
+                    "h_abs": float((ha - hb).abs().max()), "g_abs": float((ga - gb).abs().max()),
+                    "h_rel": max_rel_err(ha, hb), "g_rel": max_rel_err(ga, gb),
+                    "strict_violations": violations(ha, hb, 1e-4, 1e-5) + violations(ga, gb, 1e-4, 1e-5)}
+        check(row[key]["loss_rel"] <= 1e-5 and violations(ga, gb, 1e-4, g_atol) == 0
+              and violations(ha, hb, 1e-4, h_atol) == 0, f"data terms: {a} and {b} disagree ({row[key]})")
+    check(all(bool(torch.isfinite(x).all()) for res in out.values() for x in res), "data terms: non-finite")
+    emit(row)
+
+
+def _frame_row(pipe, metrics, wall: float, extra: dict) -> dict:
+    import numpy as np
+
+    t = pipe.warp_field.node_translations.detach().cpu().numpy()
+    return {
+        "frame": pipe.frames_processed, "wall_s": wall, "prior_valid": metrics.get("prior_valid"),
+        "prior_matches": metrics.get("prior_matches"), "valid_solve": metrics["valid_solve"],
+        "data_loss": metrics["data_loss"], "median_node_x": float(np.median(t[:, 0])),
+        "translations_finite": bool(np.isfinite(t).all()), "nodes": pipe.warp_field.num_nodes,
+        "dropped_bin_entries": metrics["dropped_bin_entries"], **extra,
+    }
+
+
+def phase_neural_prior() -> dict:
+    """The prior with the oracle flow on the 448x640 shifted plane, in two
+    tracking-span and anchor modes; returns each run's kernel launches."""
+    import torch
+
+    from dynamicfuion_python_tpu_torch.apps.fusion_pipeline import FusionPipeline
+    from dynamicfuion_python_tpu_torch.apps.profile_frame import make_shifted_plane
+    from dynamicfuion_python_tpu_torch.ops import native
+    from dynamicfuion_python_tpu_torch.utils.config import apply_overrides
+
+    runs = {
+        "first_to_current_euclidean": (["fusion.tracking_span_mode=FIRST_TO_CURRENT",
+                                        "fusion.pixel_anchor_computation_mode=EUCLIDEAN"], True),
+        "previous_to_current_shortest_path": (["fusion.tracking_span_mode=PREVIOUS_TO_CURRENT",
+                                               "fusion.pixel_anchor_computation_mode=SHORTEST_PATH"], False),
+    }
+    launches = {}
+    for name, (overrides, from_first) in runs.items():
+        params, seq = make_shifted_plane(frame_count=3)
+        params = apply_overrides(params, overrides)
+        frames = list(seq)
+        native.reset_launch_counts()
+        pipe = FusionPipeline(params, seq.intrinsics)
+        prior = pipe._apply_prior = Timed(pipe._apply_prior)
+        pipe.initialize(frames[0].depth, frames[0].color)
+        rows = []
+        for f in frames[1:]:
+            flow = seq.oracle_flow(f.index if from_first else 1)
+            t0 = time.perf_counter()
+            m = pipe.process_frame(f.depth, f.color, prior_flow=flow)
+            torch.cuda.synchronize()
+            rows.append(_frame_row(pipe, m, time.perf_counter() - t0, {"prior_s": prior.seconds[-1]}))
+        launches[name] = dict(native.launch_counts)
+        emit({"phase": "neural_prior", "run": name, "frames": rows, "launches": launches[name]})
+        for row in rows:
+            shift = seq.shift * row["frame"]
+            check(row["prior_valid"] is True, f"neural prior {name}: frame {row['frame']} prior invalid")
+            check(row["prior_matches"] > 1000, f"neural prior {name}: frame {row['frame']} has "
+                  f"{row['prior_matches']} matches")
+            check(all(row["valid_solve"]), f"neural prior {name}: frame {row['frame']}: a GN solve was invalid")
+            check(abs(row["median_node_x"] - shift) <= 0.02,
+                  f"neural prior {name}: frame {row['frame']} median node x {row['median_node_x']} vs {shift}")
+        for kernel in native.KERNELS:
+            check(launches[name][kernel] > 0, f"neural prior {name}: kernel {kernel} was not launched")
+    return launches
+
+
+DEFORM_NET_SEED = 0
+
+
+def phase_deform_net() -> dict:
+    """The prior through a seeded DeformNet checkpoint on the 448x640
+    bending plane (rigid odometry on); returns the kernel launches. Random
+    weights make no meaningful flow: the fit's validity after the prior is
+    reported, not gated."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from dynamicfuion_python_tpu_torch.apps import fusion_pipeline
+    from dynamicfuion_python_tpu_torch.apps.profile_frame import PRIOR_IMAGE_SIZE, device_busy_ms, device_us, make_slice
+    from dynamicfuion_python_tpu_torch.models import deform_net as dn
+    from dynamicfuion_python_tpu_torch.ops import native
+    from dynamicfuion_python_tpu_torch.utils.config import apply_overrides
+
+    params, seq = make_slice(frame_count=3, image_size=PRIOR_IMAGE_SIZE)
+    check(params.alignment.use_rigid_alignment, "deform_net: the scene must run the default rigid odometry")
+    frames = list(seq)
+    forwards = []  # the inputs of each DeformNet forward
+
+    def record(module, args, kwargs, output):
+        if isinstance(module, dn.DeformNet):
+            forwards.append((args, kwargs))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "deform_net.pt"
+        torch.save(dn.seeded_state_dict(dn.DeformNet(), torch.Generator().manual_seed(DEFORM_NET_SEED)), path)
+        params = apply_overrides(params, ["fusion.use_neural_prior=true", f"fusion.prior_checkpoint={path}"])
+        loads = LastCall(fusion_pipeline, "_load_prior_network")
+        gn = LastCall(dn, "optimize_point_cloud_alignment")
+        hook = torch.nn.modules.module.register_module_forward_hook(record, with_kwargs=True)
+        try:
+            native.reset_launch_counts()
+            pipe = fusion_pipeline.FusionPipeline(params, seq.intrinsics)
+            prior = pipe._apply_prior = Timed(pipe._apply_prior)
+            pipe.initialize(frames[0].depth, frames[0].color)
+            rows = []
+            for f in frames[1:]:
+                t0 = time.perf_counter()
+                m = pipe.process_frame(f.depth, f.color)
+                torch.cuda.synchronize()
+                rows.append(_frame_row(pipe, m, time.perf_counter() - t0, {"prior_s": prior.seconds[-1]}))
+            launches = dict(native.launch_counts)
+        finally:
+            hook.remove()
+            loads.restore()
+            gn.restore()
+    net = pipe.prior.deform_net
+    check(loads.calls == 1 and net is not None, f"deform_net: the network was loaded {loads.calls} times")
+    check(len(forwards) == len(rows) and all(r["prior_valid"] is not None for r in rows),
+          f"deform_net: {len(forwards)} DeformNet forwards for {len(rows)} fitted frames")
+    verts = pipe.canonical_vertices
+    check(all(r["translations_finite"] and all(math.isfinite(x) for x in r["data_loss"]) for r in rows)
+          and bool(torch.isfinite(verts).all()), "deform_net: non-finite output")
+    for kernel in native.KERNELS:
+        check(launches[kernel] > 0, f"deform_net: kernel {kernel} was not launched")
+
+    # the last frame's forward again on the card, and on the CPU
+    args, kwargs = forwards[-1]
+    with torch.no_grad():
+        card = net(*args, **kwargs)
+        cpu_net = copy.deepcopy(net).cpu()
+        to_cpu = lambda x: x.cpu() if isinstance(x, torch.Tensor) else x  # noqa: E731
+        cpu = cpu_net(*[to_cpu(a) for a in args], **{k: to_cpu(v) for k, v in kwargs.items()})
+        # the solve's own sensitivity: the CPU's tracker on the card's flow
+        # and mask (evaluate=True, no mask threshold: the weights are the
+        # mask prediction)
+        h, w = args[0].shape[1:3]
+        cpu_args = [to_cpu(a) for a in args]
+        intrinsics = cpu_args[8].expand(cpu_args[0].shape[0], 3, 3)
+        resolved = dn.track_from_flow(
+            dn.upsample_flow_to_full(card.flows[0].cpu(), (h, w)), *cpu_args[:8], intrinsics,
+            gn_config=cpu_net.gn_config, guards=cpu_net.guards,
+            mask_weights=card.mask_prediction[..., 0].cpu(),
+            initial_rotations=to_cpu(kwargs.get("node_rotations_estimate")),
+            initial_translations=to_cpu(kwargs.get("node_translations_estimate")),
+            num_nodes=cpu_net.num_nodes or args[2].shape[1],
+        )
+
+    def transform_err(a_rot, a_trans, b_rot, b_trans):
+        return (float((a_rot.cpu() - b_rot.cpu()).abs().max()), float((a_trans.cpu() - b_trans.cpu()).abs().max()))
+
+    rot_err, trans_err = transform_err(card.node_rotations, card.node_translations,
+                                       cpu.node_rotations, cpu.node_translations)
+    rot_sens, trans_sens = transform_err(resolved["node_rotations"], resolved["node_translations"],
+                                         cpu.node_rotations, cpu.node_translations)
+    errs = {
+        "flow2_rel": max_rel_err(card.flows[0], cpu.flows[0]),
+        "features2_rel": max_rel_err(card.features2, cpu.features2),
+        "mask_rel": max_rel_err(card.mask_prediction, cpu.mask_prediction),
+        "node_rotations_abs": rot_err, "node_translations_abs": trans_err,
+        "deformed_points_abs": float((card.deformed_points.cpu() - cpu.deformed_points).abs().max()),
+        "cpu_solve_of_card_flow_rotations_abs": rot_sens, "cpu_solve_of_card_flow_translations_abs": trans_sens,
+        "valid_solve_card_cpu": [int(card.valid_solve[0]), int(cpu.valid_solve[0])],
+    }
+    # FP32 convolutions (TF32 off) in another summation order: ~1e-6 relative
+    # per layer over the ~40 layers; TF32 would round each product to 10
+    # mantissa bits, ~5e-4
+    check(max(errs["flow2_rel"], errs["features2_rel"], errs["mask_rel"]) <= 2e-4,
+          f"deform_net: card forward differs from the CPU's ({errs})")
+    # the node transforms. The dense system's condition number is ~3e7 (phase
+    # output), so in f32 the rotations of weakly held nodes (few matches,
+    # held by the LM damping) are not determined: the card and the CPU may
+    # differ there by ~5e-3 per entry, and the CPU's own solve moves that
+    # much on the card's flow. What the solve determines is held tightly:
+    # translations to 1e-3 m and the dense warp of the source points (what
+    # the transforms are for) to 2e-3 m, a tenth of the 2 cm the prior's
+    # tests hold node motion to; rotation entries only to 0.05 (~3 degrees),
+    # a bound against a broken solve
+    check(errs["valid_solve_card_cpu"][0] == errs["valid_solve_card_cpu"][1] and trans_err <= 1e-3
+          and errs["deformed_points_abs"] <= 2e-3 and rot_err <= 0.05,
+          f"deform_net: card node transforms differ from the CPU's ({errs})")
+
+    with torch.no_grad():
+        forward_ms = cuda_time_ms(lambda: net(*args, **kwargs), 3, warmup=1)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            net(*args, **kwargs)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        kernel_rows = sorted((e for e in events if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA),
+                             key=lambda e: -device_us(e))
+        # the operators that launched those kernels (own device time: each
+        # kernel counts once, at its innermost operator)
+        op_rows = sorted((e for e in events if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA
+                          and device_us(e) > 0), key=lambda e: -device_us(e))
+        # the flow network alone, on the forward's two color images
+        pwcnet_ms = cuda_time_ms(lambda: net.flow_net(args[0][..., :3], args[1][..., :3]), 3, warmup=1)
+        gn_ms = cuda_time_ms(lambda: dn.optimize_point_cloud_alignment(*gn.args, **gn.kwargs), 3, warmup=1)
+        checked = gn.kwargs["config"]._replace(check_condition_num=True, break_on_condition_num=False)
+        conditions = dn.optimize_point_cloud_alignment(*gn.args, **{**gn.kwargs, "config": checked}).condition_numbers
+    iterations = gn.kwargs["config"].num_iterations
+    frame_s = sum(r["wall_s"] for r in rows)
+    emit({
+        "phase": "deform_net", "image_size": list(PRIOR_IMAGE_SIZE), "frames": rows, "launches": launches,
+        "card_vs_cpu": errs, "forward_ms": forward_ms, "forward_device_ms": device_busy_ms(events),
+        "forward_kernel_launches": sum(e.count for e in kernel_rows),
+        "top_device_ops": [{"name": e.key[:80], "device_ms": device_us(e) / 1e3, "calls": e.count}
+                           for e in kernel_rows[:12]],
+        "top_operators": [{"name": e.key[:60], "device_ms": device_us(e) / 1e3, "calls": e.count}
+                          for e in op_rows[:12]],
+        "pwcnet_ms": pwcnet_ms,
+        "gn_ms": gn_ms, "gn_iterations": iterations, "gn_ms_per_iteration": gn_ms / iterations,
+        "gn_matches": int(gn.args[3].shape[0]), "gn_nodes": int(gn.kwargs["num_nodes"]),
+        "gn_condition_numbers": [float(c) for c in conditions],
+        "prior_share_of_frame": sum(r["prior_s"] for r in rows) / frame_s, "frames_s": frame_s,
+        "fit_valid_solve_after_random_prior": [r["valid_solve"] for r in rows],
+        "peak_mem_mib": torch.cuda.max_memory_allocated() / 2**20,
+        "max_abs_translation": float(np.abs(pipe.warp_field.node_translations.cpu().numpy()).max()),
+    })
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -509,10 +830,18 @@ def main() -> int:
         return 2
     phase_build()
     last, launches, fitted = phase_main_path()
-    phase_kernels(last, launches, fitted)
+    kernels = phase_kernels(last, launches, fitted)
     phase_odometry(last["odometry"])
     phase_entry_point()
     phase_reference()
+    phase_data_terms(last["data_term"])
+    prior_launches = phase_neural_prior()
+    deform_launches = phase_deform_net()
+    for k in kernels:
+        for run, counts in prior_launches.items():
+            k[f"launches_neural_prior_{run}"] = counts[k["name"]]
+        k["launches_deform_net"] = deform_launches[k["name"]]
+    emit({"kernels": kernels})
     emit({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},

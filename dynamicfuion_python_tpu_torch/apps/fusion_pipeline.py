@@ -12,13 +12,19 @@
             non-rigid integrate through the field and the pose -> re-extract
             the canonical mesh
 
+With the neural tracking prior (``fusion.use_neural_prior`` with a DeformNet
+checkpoint, or a ``prior_flow`` given to ``process_frame``), each frame first
+predicts the node transforms from the tracking source (the keyframe) to the
+current frame and starts the fit from them; the keyframe rolls per
+``fusion.tracking_span_mode``.
+
 As in the JAX package, the first frame after ``initialize`` runs no
 odometry: ``initialize`` leaves ``previous_depth`` unset.
 
-Not ported yet, and refused with ``NotImplementedError``: the neural tracking
-prior, ``prior_flow`` and tracking spans (ROADMAP A12), the SPMD frame loop
-(A17), the ``"fast"`` / ``"autodiff"`` data terms (A5b) and the rendered-mesh
-recorder (A10).
+Not ported yet, and refused with ``NotImplementedError``: the rendered
+source-image modes of the prior and the rendered-mesh recorder (both need the
+renderer, ROADMAP A10), Flax msgpack prior checkpoints and the SPMD frame loop
+(A17).
 
 Run:  python -m dynamicfuion_python_tpu_torch.apps.fusion_pipeline \\
           --sequence <dir>|synthetic [--frames N] [--size HxW] \\
@@ -37,7 +43,11 @@ from dynamicfuion_python_tpu_torch.data.frame_sequence import (
     FrameSequenceDataset,
     SyntheticBendingPlaneSequence,
 )
+from dynamicfuion_python_tpu_torch.models.deform_net import DeformNet, TrackingGuards
 from dynamicfuion_python_tpu_torch.models.fitter import FitterConfig, IterationMode, fit_to_image
+from dynamicfuion_python_tpu_torch.models.gn_point_cloud_optimizer import GnConfig
+from dynamicfuion_python_tpu_torch.models.torch_weight_conversion import load_deform_net_checkpoint
+from dynamicfuion_python_tpu_torch.models.tracking_prior import NeuralTrackingPrior, rgbxyz_from_depth
 from dynamicfuion_python_tpu_torch.models.voxel_block_grid import (
     VoxelBlockGrid,
     extract_mesh_fitter_arrays,
@@ -48,18 +58,23 @@ from dynamicfuion_python_tpu_torch.models.warp_field import (
     WarpField,
 )
 from dynamicfuion_python_tpu_torch.ops import rigid_odometry
+from dynamicfuion_python_tpu_torch.ops.anchors import compute_anchors_euclidean
 from dynamicfuion_python_tpu_torch.ops.camera import transform_points, unproject_depth_image
 from dynamicfuion_python_tpu_torch.ops.compaction import compact_mask_indices
 from dynamicfuion_python_tpu_torch.ops.graph_construction import (
+    compute_edges_euclidean,
+    compute_pixel_anchors_shortest_path,
     mesh_from_depth_image,
     sample_nodes,
     vertex_erosion_mask,
 )
 from dynamicfuion_python_tpu_torch.ops.normals import point_image_normals
 from dynamicfuion_python_tpu_torch.settings import (
+    AnchorComputationMode,
     GraphGenerationMode,
     MeshExtractionWeightThresholdingMode,
     Parameters,
+    SourceImageMode,
     TrackingSpanMode,
 )
 from dynamicfuion_python_tpu_torch.utils.device import resolve_device
@@ -86,16 +101,7 @@ class FusionPipeline:
         a = params.alignment
         f = params.fusion
         if f.use_neural_prior:
-            raise NotImplementedError("the neural tracking prior is not ported yet (ROADMAP A12)")
-        if f.tracking_span_mode != TrackingSpanMode.FIRST_TO_CURRENT:
-            raise NotImplementedError(
-                f"tracking_span_mode={f.tracking_span_mode.name} drives the neural prior, which is "
-                "not ported yet (ROADMAP A12)"
-            )
-        if a.data_term_impl != "face":
-            raise NotImplementedError(
-                f"alignment.data_term_impl={a.data_term_impl!r} is not ported yet (ROADMAP A5b)"
-            )
+            _refuse_rendered_source(f.source_image_mode)
         self.device = resolve_device(device)
         self.params = params
         self.intrinsics = torch.as_tensor(np.asarray(intrinsics), dtype=torch.float32, device=self.device)
@@ -127,6 +133,17 @@ class FusionPipeline:
         self.previous_depth: torch.Tensor | None = None
         self.frames_processed = 0
         self.telemetry: TelemetryRecorder | None = None  # set by run_fusion
+        # the neural prior's tracking source: the keyframe's depth and color
+        # and the cumulative node transforms at that keyframe, plus its pixel
+        # anchors (cached until the keyframe rolls) and the node graph's
+        # Euclidean edges (built once)
+        self.prior: NeuralTrackingPrior | None = None
+        self.keyframe_source: tuple | None = None
+        self.keyframe_rotations: torch.Tensor | None = None
+        self.keyframe_translations: torch.Tensor | None = None
+        self.keyframe_anchors: tuple | None = None
+        self.node_graph_edges: np.ndarray | None = None
+        self._last_prior_arrays: dict = {}
         self.fitter_config = FitterConfig(
             max_iterations=a.max_iteration_count,
             min_update_threshold=a.min_update_threshold,
@@ -166,7 +183,7 @@ class FusionPipeline:
         p = self.params
         g = p.graph
         mode = p.fusion.graph_generation_mode
-        depth_t = self._frame(depth)
+        frame_depth = depth_t = self._frame(depth)
         if (
             mode == GraphGenerationMode.FIRST_FRAME_LOADED_GRAPH
             and frame_graph is not None
@@ -227,6 +244,7 @@ class FusionPipeline:
             coverage_method=NodeCoverageMethod.FIXED,
             device=self.device,
         )
+        self._reset_keyframe(frame_depth, color)
 
     def _extraction_weight_threshold(self) -> float:
         """Constant, or ramping up with the frame count so early
@@ -298,14 +316,120 @@ class FusionPipeline:
         self.previous_depth = None if previous is None else torch.as_tensor(previous, device=self.device)
         self.frames_processed = int(state["frames_processed"])
 
+    # -- neural tracking prior and tracking spans ----------------------------
+
+    def _reset_keyframe(self, depth: torch.Tensor, color) -> None:
+        """The current frame and cumulative node transforms become the
+        prior's tracking source."""
+        self.keyframe_source = (depth, color)
+        self.keyframe_rotations = self.warp_field.node_rotations
+        self.keyframe_translations = self.warp_field.node_translations
+        self.keyframe_anchors = None
+
+    def _keyframe_should_roll(self) -> bool:
+        span = self.params.fusion.tracking_span_mode
+        if span == TrackingSpanMode.PREVIOUS_TO_CURRENT:
+            return True
+        if span == TrackingSpanMode.KEYFRAME_TO_CURRENT:
+            return self.frames_processed % self.params.fusion.keyframe_interval == 0
+        return False  # FIRST_TO_CURRENT
+
+    def _prior_source_rgbxyz(self) -> torch.Tensor:
+        """The prior's source RGBD per ``fusion.source_image_mode``: the
+        keyframe's images (the rendered modes need the renderer)."""
+        _refuse_rendered_source(self.params.fusion.source_image_mode)
+        depth, color = self.keyframe_source
+        f = self.params.fusion
+        return rgbxyz_from_depth(depth, color, self.intrinsics, f.depth_scale, f.far_clip_distance)
+
+    def _prior_pixel_anchors(self, source_points: torch.Tensor):
+        """Pixel anchors of the prior's source image against the node
+        positions as warped at the keyframe, per
+        ``fusion.pixel_anchor_computation_mode``; cached until the keyframe
+        rolls."""
+        if self.keyframe_anchors is not None:
+            return self.keyframe_anchors
+        g = self.params.graph
+        nodes_kf = self.warp_field.node_positions + self.keyframe_translations
+        if self.params.fusion.pixel_anchor_computation_mode == AnchorComputationMode.SHORTEST_PATH:
+            anchors, weights = compute_pixel_anchors_shortest_path(
+                source_points.cpu().numpy(), nodes_kf.cpu().numpy(), self._node_graph_edges(),
+                g.anchor_count, g.node_coverage,
+            )
+            anchors = torch.as_tensor(anchors, device=self.device)
+            weights = torch.as_tensor(weights, device=self.device)
+        else:  # EUCLIDEAN
+            h, w = source_points.shape[:2]
+            anchors, weights, _ = compute_anchors_euclidean(
+                source_points.reshape(-1, 3), nodes_kf, g.anchor_count, node_coverage=g.node_coverage,
+                minimum_valid_anchor_count=g.minimum_valid_anchor_count, use_threshold=True,
+            )
+            anchors, weights = anchors.reshape(h, w, -1), weights.reshape(h, w, -1)
+        self.keyframe_anchors = (anchors, weights)
+        return self.keyframe_anchors
+
+    def _node_graph_edges(self) -> np.ndarray:
+        """The nodes' Euclidean 8-NN adjacency (built once per graph)."""
+        if self.node_graph_edges is None:
+            self.node_graph_edges = compute_edges_euclidean(
+                self.warp_field.node_positions.cpu().numpy(), self.params.graph.neighbor_count,
+                self.params.graph.node_coverage,
+            )[0]
+        return self.node_graph_edges
+
+    def _apply_prior(self, depth: torch.Tensor, color, prior_flow) -> dict:
+        """Run the prior (keyframe -> current frame) and compose its span
+        transforms onto the keyframe's as the fit's starting point. Returns
+        the ``prior_valid`` / ``prior_matches`` metrics."""
+        p = self.params
+        if self.prior is None:
+            deform_net = None
+            if p.fusion.prior_checkpoint:
+                deform_net = _load_prior_network(p.fusion.prior_checkpoint, self.warp_field.num_nodes, self.device)
+            # the cluster weight threshold scales with the image area; the
+            # default 2000 is calibrated for 448x640
+            h, w = depth.shape
+            guards = TrackingGuards(
+                min_num_correspondences_per_cluster=max(2000.0 * (h * w) / float(448 * 640), 16.0),
+                depth_max=p.fusion.far_clip_distance,
+            )
+            self.prior = NeuralTrackingPrior(gn_config=GnConfig(), guards=guards, deform_net=deform_net)
+        source = self._prior_source_rgbxyz()
+        target = rgbxyz_from_depth(depth, color, self.intrinsics, p.fusion.depth_scale, p.fusion.far_clip_distance)
+        anchors, weights = self._prior_pixel_anchors(source[..., 3:])
+        nodes_kf = self.warp_field.node_positions + self.keyframe_translations
+        # span estimates: keyframe -> current increments of the cumulative
+        # transforms (identity right after a keyframe roll)
+        r_k, t_k = self.keyframe_rotations, self.keyframe_translations
+        r_est = torch.einsum("nab,ncb->nac", self.warp_field.node_rotations, r_k)
+        t_est = self.warp_field.node_translations - t_k
+        edges = torch.as_tensor(self._node_graph_edges(), device=self.device)
+        result = self.prior.predict(
+            source, target, nodes_kf, edges, torch.where(edges >= 0, 1.0, 0.0),
+            torch.zeros((self.warp_field.num_nodes,), dtype=torch.int32, device=self.device),
+            anchors, weights, self.intrinsics,
+            flow_override=prior_flow, initial_rotations=r_est, initial_translations=t_est,
+        )
+        self._last_prior_arrays = {
+            "source_points": source[..., 3:],
+            "correspondence_mask": result.correspondence_mask,
+        }
+        if result.valid_solve:
+            # R_cum' = R_span R_k, t_cum' = t_k + t_span
+            self.warp_field = self.warp_field.replace(
+                node_rotations=torch.einsum("nab,nbc->nac", result.rotations, r_k),
+                node_translations=t_k + result.translations,
+            )
+        return {"prior_valid": result.valid_solve, "prior_matches": int(torch.sum(result.correspondence_mask))}
+
     def enable_spmd(self, mesh) -> None:
         raise NotImplementedError("the SPMD frame loop is not ported yet (ROADMAP A17)")
 
     # -- subsequent frames ---------------------------------------------------
 
     def process_frame(self, depth: np.ndarray, color: np.ndarray | None, prior_flow=None) -> dict:
-        if prior_flow is not None:
-            raise NotImplementedError("prior_flow feeds the neural tracking prior, not ported yet (ROADMAP A12)")
+        """Fuse one frame; ``prior_flow`` (f32[H, W, 2], keyframe -> this
+        frame, in pixels) runs the neural prior with that flow."""
         p = self.params
         use_rigid = p.alignment.use_rigid_alignment
         self.frames_processed += 1
@@ -330,6 +454,17 @@ class FusionPipeline:
         points, mask = observed_points(
             depth_t, self.intrinsics, pose, p.fusion.depth_scale, p.fusion.far_clip_distance
         )
+        # neural prior: predict the keyframe -> current node transforms and
+        # start the fit from them
+        prior_metrics = {}
+        if p.fusion.use_neural_prior or prior_flow is not None:
+            if self.keyframe_source is None:
+                # no tracking source yet (a fresh resume): this frame becomes
+                # it and the fit runs alone once
+                self._reset_keyframe(depth_t, color)
+                prior_metrics = {"prior_valid": False, "prior_matches": 0}
+            else:
+                prior_metrics = self._apply_prior(depth_t, color, prior_flow)
         self.warp_field, diagnostics = fit_to_image(
             self.warp_field,
             self.canonical_vertices,
@@ -358,6 +493,8 @@ class FusionPipeline:
         else:
             n_intersecting = torch.zeros((), dtype=torch.int64, device=self.device)
         self._refresh_canonical_mesh()
+        if self.keyframe_source is not None and self._keyframe_should_roll():
+            self._reset_keyframe(depth_t, color)
         if self.telemetry is not None:
             self.telemetry.record_gn_iterations(
                 self.frames_processed,
@@ -366,6 +503,8 @@ class FusionPipeline:
                 diagnostics["node_translations_per_iteration"],
                 self.warp_field.node_positions,
             )
+            if self._last_prior_arrays:
+                self.telemetry.record_correspondences(self.frames_processed, **self._last_prior_arrays)
         metrics = {
             "data_loss": diagnostics["data_loss"],
             "arap_loss": diagnostics["arap_loss"],
@@ -379,8 +518,8 @@ class FusionPipeline:
             "dropped_bin_entries": diagnostics["dropped_bin_entries"],
         }
         if not p.fusion.sync_frame_metrics:
-            return metrics
-        return resolve_frame_metrics(metrics)
+            return {**metrics, **prior_metrics}
+        return {**resolve_frame_metrics(metrics), **prior_metrics}
 
 
 def _parse_iteration_modes(spec: str) -> tuple:
@@ -413,6 +552,22 @@ def resolve_frame_metrics(metrics: dict) -> dict:
     out["dropped_large_faces"] = [int(x) for x in metrics["dropped_large_faces"]]
     out["dropped_bin_entries"] = [int(x) for x in metrics["dropped_bin_entries"]]
     return out
+
+
+def _refuse_rendered_source(mode: SourceImageMode) -> None:
+    if mode != SourceImageMode.IMAGE_ONLY:
+        raise NotImplementedError(
+            f"fusion.source_image_mode={mode.name} renders the model, and the renderer is not ported "
+            "yet (ROADMAP A10)"
+        )
+
+
+def _load_prior_network(checkpoint_path: str, num_nodes: int, device) -> DeformNet:
+    """A DeformNet on ``device`` with a reference checkpoint's weights
+    (``.pt`` / ``.pth`` / ``.npz``; a Flax msgpack file is refused)."""
+    net = DeformNet(use_mask=True, num_nodes=num_nodes, gn_config=GnConfig())
+    load_deform_net_checkpoint(net, checkpoint_path)
+    return net.to(device).eval()
 
 
 _CROP_NODE_CHUNK = 32  # nodes per distance pass: 118 MB of differences at 480x640

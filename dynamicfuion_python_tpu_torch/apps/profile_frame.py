@@ -4,7 +4,8 @@ one frame traced with ``torch.profiler``.
     python -m dynamicfuion_python_tpu_torch.apps.profile_frame [--frames N] [--out DIR]
 
 Defines the slice (:func:`make_slice`), which chip_smoke.py's main path runs
-too. Warms up on the first frames, then runs the last frame twice from the
+too, and the neural prior's 448x640 shifted-plane scene
+(:func:`make_shifted_plane`). Warms up on the first frames, then runs the last frame twice from the
 same state: untraced on a copy of the pipeline (its wall time), and traced.
 Prints one JSON line: both wall times, the summed device time of the traced
 frame's kernels, the device's idle share of the untraced frame (and of the
@@ -24,10 +25,11 @@ import subprocess
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from dynamicfuion_python_tpu_torch.apps.fusion_pipeline import FusionPipeline
-from dynamicfuion_python_tpu_torch.data.frame_sequence import SyntheticBendingPlaneSequence
+from dynamicfuion_python_tpu_torch.data.frame_sequence import Frame, SyntheticBendingPlaneSequence
 from dynamicfuion_python_tpu_torch.ops.rigid_odometry import rigid_odometry_multi_scale
 from dynamicfuion_python_tpu_torch.settings import Parameters
 from dynamicfuion_python_tpu_torch.utils.config import apply_overrides
@@ -42,9 +44,9 @@ SLICE_OVERRIDES = (
     "tsdf.initial_block_count=4096",
     "tsdf.max_active_blocks=2048",
 )
-# the DeepDeform sensor resolution; focal min(size) * 1.4, as the CLI sets it
+# the DeepDeform sensor resolution; focal min(size) * 1.4 (672), as the CLI
+# sets it
 SLICE_IMAGE_SIZE = (480, 640)
-SLICE_FOCAL = 672.0
 HAND_KERNELS = ("rasterize_tiles_kernel", "mesh_expand_kernel")
 
 
@@ -62,11 +64,61 @@ def use_fp32_matmuls() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def make_slice(frame_count: int):
-    """The slice's ``Parameters`` and bending-plane sequence."""
+def make_slice(frame_count: int, image_size: tuple[int, int] = SLICE_IMAGE_SIZE):
+    """The slice's ``Parameters`` and bending-plane sequence (focal
+    ``min(size) * 1.4``; 448x640 is the size the neural prior's DeformNet
+    takes, both sides multiples of 64)."""
     params = apply_overrides(Parameters(), list(SLICE_OVERRIDES))
-    seq = SyntheticBendingPlaneSequence(frame_count=frame_count, image_size=SLICE_IMAGE_SIZE, focal=SLICE_FOCAL)
+    seq = SyntheticBendingPlaneSequence(frame_count=frame_count, image_size=image_size, focal=min(image_size) * 1.4)
     return params, seq
+
+
+# the neural prior's scenes: the reference's DeepDeform input size
+PRIOR_IMAGE_SIZE = (448, 640)
+
+
+class ShiftedPlaneSequence:
+    """A flat 0.5 x 0.5 m patch at 1 m, fronto-parallel, moving ``shift``
+    metres along +x per frame, with its oracle flow: the aperture case where
+    point-to-plane fitting alone cannot see the motion and the prior's flow
+    recovers it (the JAX package's ``TestNeuralPrior`` scene)."""
+
+    def __init__(self, frame_count: int = 3, shift: float = 0.08, image_size=PRIOR_IMAGE_SIZE):
+        h, w = image_size
+        focal = min(image_size) * 1.4
+        self.frame_count = frame_count
+        self.shift = shift
+        self.image_size = image_size
+        self.intrinsics = np.asarray([[focal, 0, w / 2], [0, focal, h / 2], [0, 0, 1]], np.float32)
+
+    def load_frame(self, index: int) -> Frame:
+        h, w = self.image_size
+        fx, cx, cy = self.intrinsics[0, 0], self.intrinsics[0, 2], self.intrinsics[1, 2]
+        v, u = np.mgrid[0:h, 0:w].astype(np.float32)
+        x = (u - cx) / fx
+        y = (v - cy) / fx
+        inside = (np.abs(x - self.shift * index) < 0.25) & (np.abs(y) < 0.25)
+        depth = np.where(inside, 1000.0, 0).astype(np.uint16)
+        return Frame(index=index, depth=depth, color=None, mask=inside)
+
+    def oracle_flow(self, frames: int = 1) -> np.ndarray:
+        """Dense flow f32[H, W, 2] over ``frames`` frames of motion: every
+        pixel moves fx * shift * frames along +u."""
+        flow = np.zeros((*self.image_size, 2), np.float32)
+        flow[..., 0] = self.intrinsics[0, 0] * self.shift * frames
+        return flow
+
+    def __iter__(self):
+        for i in range(self.frame_count):
+            yield self.load_frame(i)
+
+
+def make_shifted_plane(frame_count: int = 3):
+    """The neural prior's oracle-flow scene: default ``Parameters`` with the
+    slice's capacity overrides and rigid odometry off (the camera is
+    static and ICP would explain the motion), and the shifted plane."""
+    params = apply_overrides(Parameters(), [*SLICE_OVERRIDES, "alignment.use_rigid_alignment=false"])
+    return params, ShiftedPlaneSequence(frame_count=frame_count)
 
 
 def device_busy_ms(events) -> float:

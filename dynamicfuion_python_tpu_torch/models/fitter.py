@@ -1,6 +1,5 @@
 """Dense-depth Gauss-Newton / Levenberg-Marquardt mesh-to-image fitter (port
-of ``dynamicfuion_python_tpu/models/fitter.py``, the default ``"face"`` data
-term).
+of ``dynamicfuion_python_tpu/models/fitter.py``, with its three data terms).
 
 Per GN iteration: warp the canonical mesh by the hierarchical warp field,
 expand its faces to pixel space (kernel B2), rasterize them (binned phase 1,
@@ -14,7 +13,10 @@ Fragment face ids are frozen per iteration; the residual's derivatives with
 respect to the 18 warped vertex/normal scalars of its face come from
 autograd of the scalarized pixel function (stage 1), the warp jacobians are
 analytic (stage 2, per face), and the chain rule runs per covered pixel
-(stage 3). The JAX package's one-hot MXU contractions are ``index_add_``.
+(stage 3). The JAX package's one-hot MXU contractions are ``index_add_``
+into N + 1 rows, the last one dropped. The ``"fast"`` term runs the same
+stages per pixel without compaction; the ``"autodiff"`` term differentiates
+the whole per-pixel chain with ``torch.func`` (``vmap(jacrev)``).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from dynamicfuion_python_tpu_torch.ops.compaction import compact_mask_indices
 from dynamicfuion_python_tpu_torch.ops.linalg import (
     BlockSparseArrowheadMatrix,
     arrowhead_matvec,
+    axis_angle_to_matrix,
     solve_block_diagonal_cholesky,
     solve_block_sparse_arrowhead,
 )
@@ -72,7 +75,10 @@ class FitterConfig:
     use_regularization: bool = True
     max_faces_per_bin: int = 256
     tile_size: int = 16
-    # only "face" is ported; "fast" / "autodiff" raise (ROADMAP A5b)
+    # False forces the "autodiff" data term whatever data_term_impl says
+    use_fast_data_term: bool = True
+    # data term: "face" (face-major tables + covered-pixel compaction),
+    # "fast" (pixel-major, same math) or "autodiff" (vmapped jacrev oracle)
     data_term_impl: str = "face"
     # covered-pixel compaction fraction of the face data term (0 disables)
     pixel_compaction_fraction: float = 0.6
@@ -175,31 +181,24 @@ def _stage1_value_and_grad(warped, px, py, ref_point, intrinsics):
     return res.detach(), grad
 
 
-def _data_term_face(
-    pos_v, rot_v, trans_v, canonical_vertices, canonical_normals, canonical_triangles,
-    pre: FacePrecompute, frag_faces, reference_points, reference_mask, intrinsics,
-    config: FitterConfig, num_nodes: int,
+def _pair_tables(
+    tri, slot_map, face_nodes, pre_weights, pos_v, rot_v, trans_v, canonical_vertices, canonical_normals
 ):
-    """Face-major data term: per-(vertex, anchor) warp quantities once per
-    face, per-pixel stages on the compacted covered-pixel set. Returns
-    (h_data f32[N, 6, 6], g_data f32[N, 6], data_loss)."""
-    dev = canonical_vertices.device
-    h, w = reference_mask.shape
-    n = num_nodes
-    f_count = canonical_triangles.shape[0]
-    tri_flat = canonical_triangles.reshape(-1).long()
-
-    # ---- face-level tables (F*12 pair rows)
-    slot_map = pre.slot_of_vertex_anchor.reshape(f_count, 12)
-    va_w = pre.weights[tri_flat].reshape(f_count, 12)
-    wgt_f = torch.where(slot_map >= 0, va_w, 0.0)
-    sid_f = slot_map.clamp(min=0)
-    nid_flat = torch.gather(pre.face_nodes, 1, sid_f).clamp(min=0).reshape(-1).long()
+    """Per-(vertex, anchor) warp quantities of the given face rows: the 18
+    warped vertex / normal scalars [R, 18], the rotated offsets and normals
+    [R, 36] (pair-major xyz), the anchor weights and face slots [R, 12]."""
+    rows = tri.shape[0]
+    tri_flat = tri.reshape(-1).long()
+    slot_map = slot_map.reshape(rows, 12)
+    va_w = pre_weights[tri_flat].reshape(rows, 12)
+    wgt = torch.where(slot_map >= 0, va_w, 0.0)
+    sid = slot_map.clamp(min=0)
+    nid_flat = torch.gather(face_nodes, 1, sid).clamp(min=0).reshape(-1).long()
     r9 = rot_v.reshape(-1, 9)[nid_flat]
     g3 = pos_v[nid_flat]
     t3 = trans_v[nid_flat]
-    vx = canonical_vertices[tri_flat].reshape(f_count, 3, 3).repeat_interleave(4, dim=1).reshape(-1, 3)
-    vn = canonical_normals[tri_flat].reshape(f_count, 3, 3).repeat_interleave(4, dim=1).reshape(-1, 3)
+    vx = canonical_vertices[tri_flat].reshape(rows, 3, 3).repeat_interleave(4, dim=1).reshape(-1, 3)
+    vn = canonical_normals[tri_flat].reshape(rows, 3, 3).repeat_interleave(4, dim=1).reshape(-1, 3)
     ox = vx[:, 0] - g3[:, 0]
     oy = vx[:, 1] - g3[:, 1]
     oz = vx[:, 2] - g3[:, 2]
@@ -209,48 +208,23 @@ def _data_term_face(
     rnx = r9[:, 0] * vn[:, 0] + r9[:, 1] * vn[:, 1] + r9[:, 2] * vn[:, 2]
     rny = r9[:, 3] * vn[:, 0] + r9[:, 4] * vn[:, 1] + r9[:, 5] * vn[:, 2]
     rnz = r9[:, 6] * vn[:, 0] + r9[:, 7] * vn[:, 1] + r9[:, 8] * vn[:, 2]
-    wf = wgt_f.reshape(-1)
+    wf = wgt.reshape(-1)
     wv = torch.stack(
         [wf * (g3[:, 0] + rox + t3[:, 0]), wf * (g3[:, 1] + roy + t3[:, 1]), wf * (g3[:, 2] + roz + t3[:, 2])],
         dim=-1,
-    ).reshape(f_count, 3, 4, 3).sum(dim=2)
-    wn = torch.stack([wf * rnx, wf * rny, wf * rnz], dim=-1).reshape(f_count, 3, 4, 3).sum(dim=2)
-    warped18_f = torch.cat([wv.reshape(f_count, 9), wn.reshape(f_count, 9)], dim=1)
-    rot_off_f = torch.stack([rox, roy, roz], dim=-1).reshape(f_count, 36)
-    rot_nrm_f = torch.stack([rnx, rny, rnz], dim=-1).reshape(f_count, 36)
+    ).reshape(rows, 3, 4, 3).sum(dim=2)
+    wn = torch.stack([wf * rnx, wf * rny, wf * rnz], dim=-1).reshape(rows, 3, 4, 3).sum(dim=2)
+    warped18 = torch.cat([wv.reshape(rows, 9), wn.reshape(rows, 9)], dim=1)
+    rot_off = torch.stack([rox, roy, roz], dim=-1).reshape(rows, 36)
+    rot_nrm = torch.stack([rnx, rny, rnz], dim=-1).reshape(rows, 36)
+    return warped18, rot_off, rot_nrm, wgt, sid
 
-    # ---- covered-pixel compaction
-    pix_face = frag_faces.reshape(-1).long()
-    pix_ok = (pix_face >= 0) & reference_mask.reshape(-1)
-    total = pix_face.shape[0]
-    frac = config.pixel_compaction_fraction
-    if frac and 0 < frac < 1.0:
-        cap = min(total, ((int(total * frac) + 1023) // 1024) * 1024)
-        idx, n_ok = compact_mask_indices(pix_ok, cap, fill_value=0)
-        ok = torch.arange(cap, device=dev) < n_ok
-        pface = torch.where(ok, pix_face[idx], 0)
-        ref_pts = reference_points.reshape(-1, 3)[idx]
-        px = (idx % w).to(torch.float32)
-        py = (idx // w).to(torch.float32)
-    else:
-        cap = total
-        ok = pix_ok
-        pface = pix_face
-        ref_pts = reference_points.reshape(-1, 3)
-        lin = torch.arange(total, device=dev)
-        px = (lin % w).to(torch.float32)
-        py = (lin // w).to(torch.float32)
-    safe_face = pface.clamp(min=0)
-    residuals, grad18 = _stage1_value_and_grad(
-        warped18_f[safe_face], px, py, ref_pts, intrinsics
-    )
-    ro = rot_off_f[safe_face]
-    rn = rot_nrm_f[safe_face]
-    wg = wgt_f[safe_face]
-    sid_p = sid_f[safe_face]
 
-    # ---- stage 3: chain rule into the 12 per-face node slots
-    jac = [torch.zeros((cap, 12), dtype=torch.float32, device=dev) for _ in range(6)]
+def _chain_rule(grad18, ro, rn, wg, sid):
+    """Stage 3: the 6-dof jacobian rows of each pixel's 12 face node slots,
+    as 6 tensors [P, 12] (rotation xyz, translation xyz)."""
+    cap = grad18.shape[0]
+    jac = [torch.zeros((cap, 12), dtype=torch.float32, device=grad18.device) for _ in range(6)]
     for i in range(3):
         gwx, gwy, gwz = grad18[:, 3 * i], grad18[:, 3 * i + 1], grad18[:, 3 * i + 2]
         gmx, gmy, gmz = grad18[:, 9 + 3 * i], grad18[:, 10 + 3 * i], grad18[:, 11 + 3 * i]
@@ -267,11 +241,18 @@ def _data_term_face(
                 wgt * gwy,
                 wgt * gwz,
             )
-            slot = sid_p[:, pair : pair + 1]
+            slot = sid[:, pair : pair + 1]
             for c, val in enumerate(vals):
                 jac[c].scatter_add_(1, slot, val[:, None])
+    return jac
 
-    # ---- robust weights + assembly
+
+def _assemble_normal_equations(jac, residuals, ok, slot_nodes, config: FitterConfig, n: int):
+    """Robust weights, then the per-node 6x6 blocks and gradient rows of the
+    data term: ``jac`` is 6 tensors [P, 12], ``slot_nodes`` int[P, 12] the
+    node of each slot (-1 pad). Returns (h_data [N, 6, 6], g_data [N, 6],
+    data_loss)."""
+    dev = residuals.device
     residuals = torch.where(ok, residuals, 0.0)
     if config.use_tukey_penalty:
         c_t = config.tukey_cutoff
@@ -279,19 +260,23 @@ def _data_term_face(
     else:
         tw = torch.ones_like(residuals)
     weight = torch.where(ok, tw, 0.0)
-    flat_nodes = pre.face_nodes[safe_face].reshape(-1).long()
+    flat_nodes = slot_nodes.reshape(-1).long()
     flat_w = weight.repeat_interleave(12)
     flat_r = residuals.repeat_interleave(12)
     slot_ok = (flat_nodes >= 0) & (flat_w > 0)
-    seg = torch.where(slot_ok, flat_nodes, n)
+    seg = torch.where(slot_ok, flat_nodes, n)  # row n is dropped
     jflat = [jc.reshape(-1) for jc in jac]
     if config.lump_data_hessian:
+        # |J_trans| of a (pixel, slot) is its blend weight: dividing one
+        # power out lumps the block
         w_eff = torch.sqrt(jflat[3] ** 2 + jflat[4] ** 2 + jflat[5] ** 2)
         lump = 1.0 / torch.clamp(w_eff, min=1e-3)
     else:
         lump = torch.ones_like(jflat[0])
+    # rows routed to the dropped row n are zeroed first, as the JAX package
+    # does before its one-hot sum: masked pixels may carry non-finite
+    # stage-1 gradients
     scale = torch.where(slot_ok, lump * flat_w, 0.0)
-    # masked pixels may carry non-finite stage-1 gradients: zero them
     jsafe = [torch.where(slot_ok, jc, 0.0) for jc in jflat]
     gw = torch.where(slot_ok, flat_w * flat_r, 0.0)
     rows = [jsafe[a] * jsafe[b] * scale for a in range(6) for b in range(6)]
@@ -302,6 +287,165 @@ def _data_term_face(
     g_data = hg[:n, 36:]
     data_loss = 0.5 * torch.sum(weight * residuals**2)
     return h_data, g_data, data_loss
+
+
+def _pixel_grid(h: int, w: int, dev):
+    lin = torch.arange(h * w, device=dev)
+    return (lin % w).to(torch.float32), (lin // w).to(torch.float32)
+
+
+def _data_term_face(
+    pos_v, rot_v, trans_v, canonical_vertices, canonical_normals, canonical_triangles,
+    pre: FacePrecompute, frag_faces, reference_points, reference_mask, intrinsics,
+    config: FitterConfig, num_nodes: int,
+):
+    """Face-major data term: per-(vertex, anchor) warp quantities once per
+    face, per-pixel stages on the compacted covered-pixel set. Returns
+    (h_data f32[N, 6, 6], g_data f32[N, 6], data_loss)."""
+    dev = canonical_vertices.device
+    h, w = reference_mask.shape
+    warped18_f, rot_off_f, rot_nrm_f, wgt_f, sid_f = _pair_tables(
+        canonical_triangles, pre.slot_of_vertex_anchor, pre.face_nodes, pre.weights,
+        pos_v, rot_v, trans_v, canonical_vertices, canonical_normals,
+    )
+
+    # ---- covered-pixel compaction
+    pix_face = frag_faces.reshape(-1).long()
+    pix_ok = (pix_face >= 0) & reference_mask.reshape(-1)
+    total = pix_face.shape[0]
+    frac = config.pixel_compaction_fraction
+    if frac and 0 < frac < 1.0:
+        cap = min(total, ((int(total * frac) + 1023) // 1024) * 1024)
+        idx, n_ok = compact_mask_indices(pix_ok, cap, fill_value=0)
+        ok = torch.arange(cap, device=dev) < n_ok
+        pface = torch.where(ok, pix_face[idx], 0)
+        ref_pts = reference_points.reshape(-1, 3)[idx]
+        px = (idx % w).to(torch.float32)
+        py = (idx // w).to(torch.float32)
+    else:
+        ok = pix_ok
+        pface = pix_face
+        ref_pts = reference_points.reshape(-1, 3)
+        px, py = _pixel_grid(h, w, dev)
+    safe_face = pface.clamp(min=0)
+    residuals, grad18 = _stage1_value_and_grad(warped18_f[safe_face], px, py, ref_pts, intrinsics)
+    jac = _chain_rule(grad18, rot_off_f[safe_face], rot_nrm_f[safe_face], wgt_f[safe_face], sid_f[safe_face])
+    return _assemble_normal_equations(jac, residuals, ok, pre.face_nodes[safe_face], config, num_nodes)
+
+
+def _data_term_fast(
+    pos_v, rot_v, trans_v, canonical_vertices, canonical_normals, canonical_triangles,
+    pre: FacePrecompute, frag_faces, reference_points, reference_mask, intrinsics,
+    config: FitterConfig, num_nodes: int,
+):
+    """Pixel-major data term: the face term's math with the warp quantities
+    computed per pixel from its fragment face and no compaction. Returns
+    (h_data f32[N, 6, 6], g_data f32[N, 6], data_loss)."""
+    h, w = reference_mask.shape
+    pix_face = frag_faces.reshape(-1).long()
+    ok = (pix_face >= 0) & reference_mask.reshape(-1)
+    safe_face = pix_face.clamp(min=0)
+    face_nodes = pre.face_nodes[safe_face]
+    warped18, ro, rn, wg, sid = _pair_tables(
+        canonical_triangles[safe_face], pre.slot_of_vertex_anchor[safe_face], face_nodes, pre.weights,
+        pos_v, rot_v, trans_v, canonical_vertices, canonical_normals,
+    )
+    px, py = _pixel_grid(h, w, canonical_vertices.device)
+    residuals, grad18 = _stage1_value_and_grad(warped18, px, py, reference_points.reshape(-1, 3), intrinsics)
+    jac = _chain_rule(grad18, ro, rn, wg, sid)
+    return _assemble_normal_equations(jac, residuals, ok, face_nodes, config, num_nodes)
+
+
+def _pixel_residual(
+    delta, px, py, vert_pos, vert_normal, vert_anchor_slots, vert_anchor_weights,
+    node_pos, node_rot, node_trans, ref_point, intrinsics,
+):
+    """Point-to-plane residual at one pixel as a function of the 6-dof
+    deltas [12, 6] of its face's node slots: node deltas -> warped face
+    vertices and normals -> projection -> 2D barycentrics at the pixel
+    center -> perspective-correct interpolation -> dot(n, p_rast - p_ref).
+    Returns the residual twice (value and ``jacrev``'s aux)."""
+    d_rot = axis_angle_to_matrix(delta[:, :3])
+    rot = torch.einsum("nab,nbc->nac", d_rot, node_rot)
+    trans = node_trans + delta[:, 3:]
+    slots = vert_anchor_slots.clamp(min=0)
+    w = torch.where(vert_anchor_slots >= 0, vert_anchor_weights, 0.0)
+    g = node_pos[slots]
+    rr = rot[slots]
+    tt = trans[slots]
+    offset = vert_pos[:, None, :] - g
+    rotated = torch.einsum("vkab,vkb->vka", rr, offset)
+    warped_v = torch.einsum("vk,vka->va", w, g + rotated + tt)
+    warped_n = torch.einsum("vk,vka->va", w, torch.einsum("vkab,vb->vka", rr, vert_normal))
+
+    fx, fy = intrinsics[0, 0], intrinsics[1, 1]
+    cx, cy = intrinsics[0, 2], intrinsics[1, 2]
+    z = torch.clamp(warped_v[:, 2], min=1e-6)
+    u = warped_v[:, 0] / z * fx + cx
+    v = warped_v[:, 1] / z * fy + cy
+    ax, ay = u[0], v[0]
+    bx, by = u[1], v[1]
+    cx2, cy2 = u[2], v[2]
+    area = (cx2 - ax) * (by - ay) - (cy2 - ay) * (bx - ax)
+    e0 = (px - bx) * (cy2 - by) - (py - by) * (cx2 - bx)
+    e1 = (px - cx2) * (ay - cy2) - (py - cy2) * (ax - cx2)
+    e2 = (px - ax) * (by - ay) - (py - ay) * (bx - ax)
+    safe_area = torch.where(torch.abs(area) > 1e-12, area, 1e-12)
+    bary2d = torch.stack([e0, e1, e2]) / safe_area
+    pw = bary2d / z
+    bary = pw / torch.clamp(torch.sum(pw), min=1e-12)
+    depth = torch.sum(bary * warped_v[:, 2])
+    p_rast = torch.stack([(px - cx) / fx * depth, (py - cy) / fy * depth, depth])
+    n_rast = torch.einsum("v,va->a", bary, warped_n)
+    n_rast = n_rast / torch.clamp(torch.linalg.norm(n_rast), min=1e-9)
+    r = torch.sum(n_rast * (p_rast - ref_point))
+    return r, r
+
+
+_residual_and_jacobian = torch.func.vmap(
+    torch.func.jacrev(_pixel_residual, argnums=0, has_aux=True),
+    in_dims=(None, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, None),
+)
+
+
+def _data_term_autodiff(
+    pos_v, rot_v, trans_v, canonical_vertices, canonical_normals, canonical_triangles,
+    pre: FacePrecompute, frag_faces, reference_points, reference_mask, intrinsics,
+    config: FitterConfig, num_nodes: int,
+):
+    """The data term from per-pixel jacobians of the whole residual chain
+    (``vmap(jacrev)``): the oracle the analytic terms are held to. Returns
+    (h_data f32[N, 6, 6], g_data f32[N, 6], data_loss)."""
+    dev = canonical_vertices.device
+    h, w = reference_mask.shape
+    pix_face = frag_faces.reshape(-1).long()
+    ok = (pix_face >= 0) & reference_mask.reshape(-1)
+    safe_face = pix_face.clamp(min=0)
+    tri = canonical_triangles[safe_face].long()
+    face_nodes = pre.face_nodes[safe_face]
+    safe_nodes = face_nodes.clamp(min=0).long()
+    px, py = _pixel_grid(h, w, dev)
+    zero_delta = torch.zeros((MAX_FACE_NODES, 6), dtype=torch.float32, device=dev)
+    jac, residuals = _residual_and_jacobian(
+        zero_delta, px, py, canonical_vertices[tri], canonical_normals[tri],
+        pre.slot_of_vertex_anchor[safe_face].long(), pre.weights[tri],
+        pos_v[safe_nodes], rot_v[safe_nodes], trans_v[safe_nodes],
+        reference_points.reshape(-1, 3), intrinsics,
+    )  # jac [P, 12, 6], residuals [P]
+    return _assemble_normal_equations(
+        [jac[..., c] for c in range(6)], residuals, ok, face_nodes, config, num_nodes
+    )
+
+
+_DATA_TERMS = {"face": _data_term_face, "fast": _data_term_fast, "autodiff": _data_term_autodiff}
+
+
+def data_term_impl(config: FitterConfig) -> str:
+    """The data term a configuration selects; raises for an unknown name."""
+    impl = config.data_term_impl if config.use_fast_data_term else "autodiff"
+    if impl not in _DATA_TERMS:
+        raise ValueError(f"unknown data_term_impl {impl!r}; expected one of {sorted(_DATA_TERMS)}")
+    return impl
 
 
 def _max_wing_degree(field: HierarchicalGraphWarpField) -> int:
@@ -349,7 +493,8 @@ def gauss_newton_step(
     )
     frag_faces = frag.face_indices[..., 0]
 
-    h_data, g_data, data_loss = _data_term_face(
+    impl = data_term_impl(config)
+    h_data, g_data, data_loss = _DATA_TERMS[impl](
         pos_v, rot_v, trans_v, canonical_vertices, canonical_normals, canonical_triangles,
         pre, frag_faces, reference_points, reference_mask, intrinsics, config, n,
     )
@@ -441,7 +586,7 @@ def gauss_newton_step(
 
     # fraction of covered pixels the compaction cap kept (1.0 = none dropped)
     frac = config.pixel_compaction_fraction
-    if frac and 0 < frac < 1.0:
+    if impl == "face" and frac and 0 < frac < 1.0:
         total = h * w
         cap = min(total, ((int(total * frac) + 1023) // 1024) * 1024)
         n_ok = torch.sum((frag_faces.reshape(-1) >= 0) & reference_mask.reshape(-1))
@@ -470,11 +615,7 @@ def fit_to_image(
     ``min_update_threshold`` (single-mode schedules); the diagnostics of
     iterations that did not run repeat the last one that did.
     """
-    if config.data_term_impl != "face":
-        raise NotImplementedError(
-            f"data_term_impl={config.data_term_impl!r} is not ported yet (ROADMAP A5b: "
-            "only the default 'face' data term runs in the PyTorch port)"
-        )
+    data_term_impl(config)  # refuse an unknown data term before any work
     dev = resolve_device(device)
     field = field.to(dev)
     verts = torch.as_tensor(canonical_vertices, dtype=torch.float32, device=dev)

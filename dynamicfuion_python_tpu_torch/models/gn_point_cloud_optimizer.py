@@ -1,0 +1,201 @@
+"""Gauss-Newton point-cloud alignment, the neural tracker's solver (port of
+``dynamicfuion_python_tpu/models/gn_point_cloud_optimizer.py``).
+
+Per iteration: data residuals [flow-u, flow-v, depth] per correspondence with
+jacobians with respect to its 4 anchor nodes' axis-angle + translation
+deltas (``torch.func``: ``vmap(jacrev)``), ARAP residuals over the flat graph
+edges (analytic jacobians), A = J^T J + lm I and b = -J^T r assembled per
+node pair (``index_add_`` of the [M, 4, 4, 6, 6] anchor-pair blocks into
+[N * N, 6, 6]), a dense solve and the axis-angle update. The dense [3M x 6N]
+jacobian is never formed. A step whose solve fails (``solve_ex`` reports it in
+``info``), comes out non-finite or trips the optional condition-number cutoff
+marks the solve invalid and freezes the transforms; nothing syncs with the
+host.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import torch
+
+from dynamicfuion_python_tpu_torch.ops.linalg.rodrigues import axis_angle_to_matrix, skew
+
+
+class GnConfig(NamedTuple):
+    """Defaults as in the JAX package (the reference's deform-net settings)."""
+
+    num_iterations: int = 3
+    lm_factor: float = 0.1
+    lambda_data_flow: float = 1.0
+    lambda_data_depth: float = 1.0
+    lambda_arap: float = 1.0
+    use_edge_weighting: bool = False
+    check_condition_num: bool = False
+    break_on_condition_num: bool = True
+    max_condition_num: float = 1e6
+
+
+class GnResult(NamedTuple):
+    """Solve outputs. ``valid_solve`` false means some iteration failed its
+    guards; the transforms are then the last valid state."""
+
+    rotations: torch.Tensor  # f32[N, 3, 3]
+    translations: torch.Tensor  # f32[N, 3]
+    losses: torch.Tensor  # f32[iterations]
+    valid_solve: torch.Tensor  # bool[]
+    condition_numbers: torch.Tensor  # f32[iterations] (inf when not checked)
+
+
+def _match_residual(
+    delta, source_point, anchor_nodes, anchor_weights, rot, trans, target_uv, target_z, intrinsics,
+    lambda_flow: float, lambda_depth: float,
+):
+    """[flow-u, flow-v, depth] residual of one correspondence as a function
+    of its anchors' deltas [4, 6]."""
+    d_rot = axis_angle_to_matrix(delta[:, :3])
+    r = torch.einsum("kab,kbc->kac", d_rot, rot)
+    t = trans + delta[:, 3:]
+    rotated = torch.einsum("kab,kb->ka", r, source_point[None] - anchor_nodes)
+    deformed = torch.einsum("k,ka->a", anchor_weights, anchor_nodes + rotated + t)
+    fx, fy = intrinsics[0, 0], intrinsics[1, 1]
+    cx, cy = intrinsics[0, 2], intrinsics[1, 2]
+    inv_z = 1.0 / (deformed[2] + 1e-7)
+    u = fx * deformed[0] * inv_z + cx
+    v = fy * deformed[1] * inv_z + cy
+    return torch.stack([
+        lambda_flow * (u - target_uv[0]), lambda_flow * (v - target_uv[1]), lambda_depth * (deformed[2] - target_z),
+    ])
+
+
+_IN_DIMS = (None, 0, 0, 0, 0, 0, 0, 0, None)
+
+
+def _match_residuals_and_jacobians(config: GnConfig, *args):
+    fn = functools.partial(_match_residual, lambda_flow=config.lambda_data_flow, lambda_depth=config.lambda_data_depth)
+    jac = torch.func.vmap(torch.func.jacrev(fn, argnums=0), in_dims=_IN_DIMS)(*args)  # [M, 3, 4, 6]
+    res = torch.func.vmap(fn, in_dims=_IN_DIMS)(*args)  # [M, 3]
+    return res, jac
+
+
+def _edge_residual_jacobian(nodes, rot, trans, edges, edge_weights, config: GnConfig):
+    """ARAP residuals [E, 3], d res / d rot_i [E, 3, 3] and the weights."""
+    i = edges[:, 0]
+    j = edges[:, 1]
+    w = (edge_weights if config.use_edge_weighting else torch.ones_like(edge_weights)) * config.lambda_arap
+    rotated = torch.einsum("eab,eb->ea", rot[i], nodes[j] - nodes[i])
+    res = w[:, None] * (rotated + nodes[i] + trans[i] - (nodes[j] + trans[j]))
+    return res, -w[:, None, None] * skew(rotated), w
+
+
+def optimize_point_cloud_alignment(
+    graph_nodes: torch.Tensor,  # f32[N, 3]
+    graph_edges: torch.Tensor,  # int[N, Ke] (-1 pad)
+    graph_edge_weights: torch.Tensor,  # f32[N, Ke]
+    source_points: torch.Tensor,  # f32[M, 3]
+    source_anchors: torch.Tensor,  # int[M, 4]
+    source_anchor_weights: torch.Tensor,  # f32[M, 4]
+    correspondence_weights: torch.Tensor,  # f32[M] (0 = padding / invalid)
+    target_uv: torch.Tensor,  # f32[M, 2] flow-warped pixel targets
+    target_z: torch.Tensor,  # f32[M]
+    intrinsics: torch.Tensor,
+    num_nodes: int,
+    config: GnConfig = GnConfig(),
+    initial_rotations: torch.Tensor | None = None,
+    initial_translations: torch.Tensor | None = None,
+) -> GnResult:
+    """The GN solve on the device of its inputs; returns a :class:`GnResult`."""
+    n = num_nodes
+    dev = graph_nodes.device
+    rot = (
+        initial_rotations if initial_rotations is not None
+        else torch.eye(3, dtype=torch.float32, device=dev).expand(n, 3, 3)
+    )
+    trans = initial_translations if initial_translations is not None else torch.zeros((n, 3), device=dev)
+    if config.num_iterations == 0:
+        # the reference's skip-solver mode: identity transforms, trivially valid
+        return GnResult(rot, trans, torch.zeros((1,), device=dev), torch.ones((), dtype=torch.bool, device=dev),
+                        torch.full((1,), torch.inf, device=dev))
+
+    # flat edge pairs
+    ke = graph_edges.shape[1]
+    src = torch.arange(n, device=dev).repeat_interleave(ke)
+    dst = graph_edges.reshape(-1).long()
+    edge_ok = dst >= 0
+    pairs = torch.stack([src, dst.clamp(min=0)], dim=1)
+    pair_w = torch.where(edge_ok, graph_edge_weights.reshape(-1) * ke, 0.0)
+    i_idx, j_idx = pairs[:, 0], pairs[:, 1]
+    eye3 = torch.eye(3, dtype=torch.float32, device=dev)
+
+    safe_anchor = source_anchors.clamp(min=0).long()
+    anchor_w = torch.where(source_anchors >= 0, source_anchor_weights, 0.0)
+    anchor_nodes = graph_nodes[safe_anchor]  # [M, 4, 3]
+    seg = (safe_anchor[:, :, None] * n + safe_anchor[:, None, :]).reshape(-1)
+    cw = correspondence_weights
+    zero_delta = torch.zeros((4, 6), dtype=torch.float32, device=dev)
+    eye = torch.eye(6 * n, dtype=torch.float32, device=dev)
+    valid = torch.ones((), dtype=torch.bool, device=dev)
+    losses, condition_numbers = [], []
+    for _ in range(config.num_iterations):
+        res, jac = _match_residuals_and_jacobians(
+            config, zero_delta, source_points, anchor_nodes, anchor_w, rot[safe_anchor], trans[safe_anchor],
+            target_uv, target_z, intrinsics,
+        )
+        jac = jac * cw[:, None, None, None]
+        res_w = res * cw[:, None]
+
+        # data J^T J: anchor-pair blocks summed into [N, N, 6, 6]
+        pair_blocks = torch.einsum("mrka,mrlb->mklab", jac, jac)  # [M, 4, 4, 6, 6]
+        h = torch.zeros((n * n, 6, 6), dtype=torch.float32, device=dev)
+        h.index_add_(0, seg, pair_blocks.reshape(-1, 6, 6))
+        h = h.reshape(n, n, 6, 6)
+        g = torch.zeros((n, 6), dtype=torch.float32, device=dev)
+        g.index_add_(0, safe_anchor.reshape(-1), -torch.einsum("mrka,mr->mka", jac, res_w).reshape(-1, 6))
+
+        # ARAP: J_i = [jrot | w I], J_j = [0 | -w I]
+        e_res, e_jrot, e_w = _edge_residual_jacobian(graph_nodes, rot, trans, pairs, pair_w, config)
+        e_res = e_res * edge_ok[:, None]
+        e_jrot = e_jrot * edge_ok[:, None, None]
+        e_w = e_w * edge_ok
+        j_i = torch.cat([e_jrot, e_w[:, None, None] * eye3], dim=-1)  # [E, 3, 6]
+        j_j = torch.cat([torch.zeros_like(e_jrot), -e_w[:, None, None] * eye3], dim=-1)
+        blocks_ij = torch.einsum("eab,eac->ebc", j_i, j_j)
+        for blk, ai, aj in (
+            (torch.einsum("eab,eac->ebc", j_i, j_i), i_idx, i_idx),
+            (blocks_ij, i_idx, j_idx),
+            (blocks_ij.transpose(-1, -2), j_idx, i_idx),
+            (torch.einsum("eab,eac->ebc", j_j, j_j), j_idx, j_idx),
+        ):
+            h = h.index_put((ai, aj), blk, accumulate=True)
+        g = g.index_add(0, i_idx, -torch.einsum("eab,ea->eb", j_i, e_res))
+        g = g.index_add(0, j_idx, -torch.einsum("eab,ea->eb", j_j, e_res))
+
+        # dense system; a failed factorization counts as a non-finite step
+        h_dense = h.permute(0, 2, 1, 3).reshape(6 * n, 6 * n) + config.lm_factor * eye
+        delta, info = torch.linalg.solve_ex(h_dense, g.reshape(-1))
+        delta = delta.reshape(n, 6)
+        if config.check_condition_num:
+            eigs = torch.abs(torch.linalg.eigvalsh(h_dense))
+            condition_number = torch.amax(eigs) / torch.clamp(torch.amin(eigs), min=1e-30)
+            if config.break_on_condition_num:
+                cond_ok = torch.isfinite(condition_number) & (condition_number <= config.max_condition_num)
+            else:
+                cond_ok = torch.ones((), dtype=torch.bool, device=dev)
+        else:
+            condition_number = torch.full((), torch.inf, device=dev)
+            cond_ok = torch.ones((), dtype=torch.bool, device=dev)
+        step_ok = torch.all(torch.isfinite(delta)) & cond_ok & (info == 0)
+        delta = torch.where(step_ok & torch.isfinite(delta), delta, 0.0)
+        valid = valid & step_ok
+
+        new_rot = torch.einsum("nab,nbc->nac", axis_angle_to_matrix(delta[:, :3]), rot)
+        new_trans = trans + delta[:, 3:]
+        rot = torch.where(valid, new_rot, rot)
+        trans = torch.where(valid, new_trans, trans)
+        losses.append(torch.sum(res_w**2) + torch.sum(e_res**2))
+        condition_numbers.append(condition_number)
+    losses = torch.stack(losses)
+    # the final residuals must be finite too
+    valid = valid & torch.isfinite(losses[-1])
+    return GnResult(rot, trans, losses, valid, torch.stack(condition_numbers))

@@ -9,7 +9,11 @@ per graph build). Port of the functions of
     ``min_neighbors`` surviving faces; the mask marks vertices of surviving
     faces;
   - node sampling: greedy Poisson-disk, accept a vertex as node iff no
-    previously accepted node lies within ``node_coverage``.
+    previously accepted node lies within ``node_coverage``;
+
+and the two the neural tracking prior uses: Euclidean KNN node edges and
+shortest-path pixel anchors (scipy's KD-tree and Dijkstra, as in the JAX
+package).
 """
 
 from __future__ import annotations
@@ -121,3 +125,73 @@ def sample_nodes(
             chosen.append(vi)
     idx = np.asarray(chosen, np.int32)
     return pts[idx], idx
+
+
+def compute_pixel_anchors_shortest_path(
+    point_image: np.ndarray,  # f32[H, W, 3] camera-space points (z = 0 invalid)
+    node_positions: np.ndarray,  # f32[N, 3]
+    node_edges: np.ndarray,  # int32[N, Ke] (-1 pad) node adjacency
+    anchor_count: int,
+    node_coverage: float,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Shortest-path pixel anchors: each valid pixel seeds at its
+    Euclidean-nearest node and ranks nodes by (distance to the seed) +
+    (graph-geodesic distance seed -> node over the node adjacency). Weights
+    exp(-d^2 / (2 sigma^2)), normalized (uniform over the kept anchors when
+    they sum to 0); anchors beyond 2 * node_coverage are dropped (-1).
+    Returns (anchors int32[H, W, K], weights f32[H, W, K])."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import dijkstra
+    from scipy.spatial import cKDTree
+
+    nodes = np.asarray(node_positions, np.float32)
+    n = len(nodes)
+    edges = np.asarray(node_edges)
+    src = np.repeat(np.arange(n), edges.shape[1])
+    dst = edges.reshape(-1)
+    ok = dst >= 0
+    src, dst = src[ok], dst[ok]
+    lengths = np.linalg.norm(nodes[src] - nodes[dst], axis=1)
+    node_dist = dijkstra(csr_matrix((lengths, (src, dst)), shape=(n, n)), directed=False)  # inf: unreachable
+
+    h, w = point_image.shape[:2]
+    pts = np.asarray(point_image, np.float32).reshape(-1, 3)
+    valid = pts[:, 2] > 0
+    anchors = np.full((h * w, anchor_count), -1, np.int32)
+    weights = np.zeros((h * w, anchor_count), np.float32)
+    if valid.any() and n > 0:
+        seed_d, seed = cKDTree(nodes).query(pts[valid], k=1)
+        total = seed_d[:, None] + node_dist[seed]  # [P, N]
+        k = min(anchor_count, n)
+        order = np.argsort(total, axis=1, kind="stable")[:, :k]
+        dist = np.take_along_axis(total, order, axis=1)
+        keep = np.isfinite(dist) & (dist <= 2.0 * node_coverage)
+        a = np.where(keep, order, -1).astype(np.int32)
+        wts = np.where(keep, np.exp(-(dist**2) / (2.0 * node_coverage**2)), 0.0)
+        sums = wts.sum(1, keepdims=True)
+        counts = np.maximum((a >= 0).sum(1, keepdims=True), 1)
+        wts = np.where(sums > 0, wts / np.maximum(sums, 1e-30), np.where(a >= 0, 1.0 / counts, 0.0))
+        anchors[valid, :k] = a
+        weights[valid, :k] = wts.astype(np.float32)
+    return anchors.reshape(h, w, anchor_count), weights.reshape(h, w, anchor_count)
+
+
+def compute_edges_euclidean(
+    node_positions: np.ndarray, max_neighbor_count: int, node_coverage: float
+) -> tuple[np.ndarray, np.ndarray]:
+    """Euclidean KNN node edges int32[N, K] (-1 pad when there are fewer
+    other nodes) and their normalized Gaussian weights f32[N, K]."""
+    from scipy.spatial import cKDTree
+
+    pts = np.asarray(node_positions, np.float32)
+    k = min(max_neighbor_count + 1, len(pts))
+    dist, idx = cKDTree(pts).query(pts, k=k)
+    dist, idx = dist[:, 1:], idx[:, 1:]  # drop each node itself
+    edges = idx.astype(np.int32)
+    w = np.exp(-(dist**2) / (2.0 * node_coverage**2)).astype(np.float32)
+    w /= np.maximum(w.sum(1, keepdims=True), 1e-30)
+    if edges.shape[1] < max_neighbor_count:
+        pad = max_neighbor_count - edges.shape[1]
+        edges = np.pad(edges, ((0, 0), (0, pad)), constant_values=-1)
+        w = np.pad(w, ((0, 0), (0, pad)))
+    return edges, w

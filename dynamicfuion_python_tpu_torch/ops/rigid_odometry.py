@@ -90,9 +90,13 @@ def _icp_level(
         # jacobian rows [(T p) x n | n] of r = n . (R p + t - q) under a
         # left-multiplied increment exp([w]x) T
         jac = torch.cat([torch.linalg.cross(moved, n), n], dim=-1)  # [P, 6]
-        wj = jac * wgt[:, None]
-        a = wj.T @ jac + damping
-        b = -(wj.T @ r)
+        # the sums over pixels accumulate in f64: a CPU matrix product splits
+        # them by the thread count, and in f32 that moved the pose by up to
+        # 2.5e-7 between thread counts (the fits after it grow that to
+        # 1.5e-4 m); in f64 the f32 result is the same for any split
+        wj = (jac * wgt[:, None]).double()
+        a = (wj.T @ jac.double()).float() + damping
+        b = -(wj.T @ r.double()).float()
         # solve_ex reports a singular system in its info tensor instead of
         # checking it on the host
         delta = torch.linalg.solve_ex(a, b)[0]

@@ -1,5 +1,5 @@
-"""Carry warp-field and TSDF-volume state between the JAX package and the
-port.
+"""Carry warp-field and TSDF-volume state, and DeformNet weights, between
+the JAX package and the port.
 
 The state is a dict of numpy arrays: the JAX objects' pytree leaves plus
 their static fields, under the dataclass field names. This system has no
@@ -8,6 +8,10 @@ parameters; the tests use these converters to start the port's fitter and
 integrator from the exact state the JAX package holds. Enum fields travel as
 their name. Nothing here imports JAX: the caller builds the dict, e.g.
 ``{f.name: np.asarray(getattr(obj, f.name)) for f in dataclasses.fields(obj)}``.
+
+DeformNet weights travel from the JAX package's Flax parameter tree (numpy
+leaves) to the port's ``state_dict``: the inverse of the JAX package's
+reference-checkpoint conversion.
 """
 
 from __future__ import annotations
@@ -26,6 +30,34 @@ from dynamicfuion_python_tpu_torch.models.warp_field import (
 from dynamicfuion_python_tpu_torch.utils.device import resolve_device
 
 _INT_FIELDS = {"virtual_node_indices", "edges", "slot_keys", "sorted_keys", "slot_of_sorted"}
+
+
+def deform_net_state_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The JAX DeformNet's Flax parameters (``{"flow_net": ..., "mask_net":
+    ...}``, optionally under ``"params"``, numpy leaves) as the port's
+    ``state_dict``. Conv kernels HWIO -> [out, in, kh, kw]; transposed-conv
+    kernels [kh, kw, in, out] -> [in, out, kh, kw], spatially flipped (Flax
+    applies the kernel unflipped, torch's transposed conv is the conv's
+    gradient)."""
+    from dynamicfuion_python_tpu_torch.models.torch_weight_conversion import LAYERS
+
+    params = params.get("params", params)
+    state = {}
+    for name, path, transposed in LAYERS:
+        node = params
+        for key in path:
+            if key not in node:
+                break
+            node = node[key]
+        else:
+            kernel = np.asarray(node["kernel"])
+            if transposed:
+                weight = np.transpose(kernel, (2, 3, 0, 1))[:, :, ::-1, ::-1]
+            else:
+                weight = np.transpose(kernel, (3, 2, 0, 1))
+            state[f"{name}.weight"] = torch.as_tensor(np.ascontiguousarray(weight))
+            state[f"{name}.bias"] = torch.as_tensor(np.array(node["bias"]))
+    return state
 
 
 def _from_numpy(cls, state: dict, device):

@@ -2,8 +2,8 @@
 metrics (port of ``dynamicfuion_python_tpu/utils/telemetry.py``).
 
 A run writes into ``<telemetry.output_directory>/<run name>/``: canonical and
-warped triangle soups per frame, optional per-iteration GN states, and
-``metrics.json`` at the end. The rendered warped mesh needs the renderer,
+warped triangle soups per frame, optional per-iteration GN states and
+neural-prior correspondence sets, and ``metrics.json`` at the end. The rendered warped mesh needs the renderer,
 which is not ported yet (ROADMAP A10): turning it on raises.
 """
 
@@ -135,8 +135,8 @@ class TelemetryRecorder:
         correspondence_mask=None,
         mask_prediction=None,
     ):
-        """Correspondence sets + mask predictions of the neural tracking prior
-        (fed only by the prior, which is not ported yet: ROADMAP A12)."""
+        """Correspondence sets + mask predictions of the neural tracking
+        prior."""
         if not self.config.record_correspondences:
             return
         arrays = {}

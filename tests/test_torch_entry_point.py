@@ -108,6 +108,28 @@ def test_rigid_pipeline_node_translations(rigid_runs):
     np.testing.assert_allclose(pt[:, :2], jt[:, :2], atol=2e-3)
 
 
+def test_rigid_pipeline_independent_of_the_thread_count(rigid_runs):
+    """The port's rigid run with 2 CPU threads equals the fixture's run with
+    the default count, bit for bit. Before the odometry's pixel sums went to
+    f64 the two differed by up to 1.5e-4 m in the final node translations
+    (1-8 threads), which made test_rigid_pipeline_node_translations pass or
+    fail with the machine's core count (test_torch_rigid_odometry.py)."""
+    _, pp, rows = rigid_runs
+    seq = _seq(4)
+    frames = list(seq)
+    default = torch.get_num_threads()
+    torch.set_num_threads(2 if default != 2 else 1)
+    try:
+        other = _port_pipeline(p_apply(PParams(), OVERRIDES), seq.intrinsics)
+        other.initialize(frames[0].depth, frames[0].color)
+        for f in frames[1:]:
+            other.process_frame(f.depth, f.color)
+    finally:
+        torch.set_num_threads(default)
+    assert torch.equal(other.extrinsics, pp.extrinsics)
+    assert torch.equal(other.warp_field.node_translations, pp.warp_field.node_translations)
+
+
 # -- graph modes -------------------------------------------------------------
 
 

@@ -4,6 +4,7 @@ hierarchical scene (the first bending-plane frame's extracted mesh and
 graph, fitted to the second frame)."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import jax
@@ -122,6 +123,109 @@ def test_fit_to_image(scene):
 
 def test_other_data_terms_are_refused(scene):
     s = scene
-    cfg = dataclasses.replace(s["pcfg"], data_term_impl="fast")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg = dataclasses.replace(s["pcfg"], data_term_impl="bogus")
+    with pytest.raises(ValueError, match="data_term_impl"):
         PF.fit_to_image(s["pf"], s["verts"], s["faces"], s["points"], s["mask"], s["k"], cfg, device="cpu")
+    # use_fast_data_term=False selects the autodiff oracle whatever the name
+    assert PF.data_term_impl(dataclasses.replace(cfg, use_fast_data_term=False)) == "autodiff"
+
+
+@pytest.mark.parametrize("impl", ["fast", "autodiff"])
+def test_fit_to_image_other_data_terms(scene, impl):
+    """A whole fit with the "fast" / "autodiff" data term equals the fit
+    with the "face" term without compaction: the same math (each term is
+    held to its JAX counterpart in test_data_terms_match_jax)."""
+    s = scene
+    face = dataclasses.replace(s["pcfg"], max_iterations=2, pixel_compaction_fraction=0.0)
+    other = dataclasses.replace(face, data_term_impl=impl, use_fast_data_term=impl != "autodiff")
+    _, want = PF.fit_to_image(s["pf"], s["verts"], s["faces"], s["points"], s["mask"], s["k"], face, device="cpu")
+    _, got = PF.fit_to_image(s["pf"], s["verts"], s["faces"], s["points"], s["mask"], s["k"], other, device="cpu")
+    assert got["valid_solve"].all() and torch.equal(got["valid_solve"], want["valid_solve"])
+    np.testing.assert_allclose([float(x) for x in got["data_loss"]], [float(x) for x in want["data_loss"]], rtol=1e-5)
+    pt = got["node_translations_per_iteration"].numpy()
+    wt = want["node_translations_per_iteration"].numpy()
+    # test_fit_to_image's bounds: the surface normal tight, in-plane 1e-3
+    np.testing.assert_allclose(pt[..., 2], wt[..., 2], atol=1e-5)
+    np.testing.assert_allclose(pt[..., :2], wt[..., :2], atol=1e-3)
+
+
+# -- the three data terms (tests/test_fitter.py::TestFaceDataTermParity) -----
+
+
+@functools.lru_cache(maxsize=2)
+def _cached_parity_fixture(seed: int):
+    from test_fitter import _parity_fixture
+
+    return _parity_fixture(seed=seed)
+
+
+# the JAX data terms jitted (config and node count static): eager, their
+# per-pixel vmaps dispatch op by op
+_JAX_TERMS = {
+    name: jax.jit(getattr(JF, f"_data_term_{name}"), static_argnums=(11, 12)) for name in ("face", "fast", "autodiff")
+}
+
+
+def _parity_args(seed: int, frac: float, tukey: bool, nan_outside_mask: bool = False):
+    """tests/test_fitter.py's parity fixture as the JAX and the port data
+    terms' argument tuples (the port's from the same numpy arrays)."""
+    from test_fitter import INTR
+
+    field, verts, tris, normals, pre, frag_faces, ref_pts, ref_mask = _cached_parity_fixture(seed)
+    if nan_outside_mask:
+        ref_pts = jnp.where(ref_mask[..., None], ref_pts, jnp.nan)
+    kw = dict(use_tukey_penalty=tukey, tukey_cutoff=0.1, pixel_compaction_fraction=frac)
+    jargs = (
+        field.virtual_positions(), field.virtual_rotations(), field.virtual_translations(), verts, normals, tris,
+        pre, frag_faces, ref_pts, ref_mask, INTR, JF.FitterConfig(**kw), field.num_nodes,
+    )
+    ppre = PF.FacePrecompute(_t(pre.anchors), _t(pre.weights), _t(pre.face_nodes), _t(pre.slot_of_vertex_anchor).long())
+    pargs = (*(_t(a) for a in jargs[:6]), ppre, *(_t(a) for a in jargs[7:11]), PF.FitterConfig(**kw), field.num_nodes)
+    return jargs, pargs
+
+
+def _assert_terms_close(got, want):
+    # the JAX test's tolerances (tests/test_fitter.py:408-426)
+    np.testing.assert_allclose(float(got[2]), float(want[2]), rtol=1e-5)
+    np.testing.assert_allclose(np.asarray(got[1]), np.asarray(want[1]), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(got[0]), np.asarray(want[0]), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("frac", [0.0, 0.6])
+@pytest.mark.parametrize("tukey", [True, False])
+def test_data_terms_match_jax(frac, tukey):
+    """All three data terms in both packages on the JAX parity fixture: each
+    port term against its JAX counterpart, and against the port's other two
+    (the compaction cap is above the covered-pixel count here, so "face"
+    drops no row)."""
+    jargs, pargs = _parity_args(4, frac, tukey)
+    port = {}
+    for name in ("face", "fast", "autodiff"):
+        want = _JAX_TERMS[name](*jargs)
+        port[name] = [x.numpy() for x in PF._DATA_TERMS[name](*pargs)]
+        _assert_terms_close(port[name], want)
+    assert np.abs(port["face"][0]).max() > 0
+    _assert_terms_close(port["face"], port["fast"])
+    _assert_terms_close(port["face"], port["autodiff"])
+
+
+@pytest.mark.parametrize("impl", ["face", "fast", "autodiff"])
+def test_data_terms_finite_with_nan_outside_the_mask(impl):
+    """Masked pixels carry non-finite observed points (invalid depth): every
+    term stays finite, as the JAX terms do."""
+    jargs, pargs = _parity_args(11, 0.6, False, nan_outside_mask=True)
+    got = PF._DATA_TERMS[impl](*pargs)
+    assert all(bool(torch.isfinite(x).all()) for x in got)
+    _assert_terms_close([x.numpy() for x in got], _JAX_TERMS[impl](*jargs))
+
+
+def test_autodiff_jacobians_under_no_grad():
+    """fit_to_image runs under torch.no_grad(): torch.func's jacrev still
+    differentiates there."""
+    _, pargs = _parity_args(4, 0.0, False)
+    with torch.no_grad():
+        inside = PF._data_term_autodiff(*pargs)
+    outside = PF._data_term_autodiff(*pargs)
+    assert float(inside[0].abs().max()) > 0
+    for a, b in zip(inside, outside):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

@@ -69,25 +69,27 @@ def test_entry_points_need_a_card_unless_asked(monkeypatch):
 
 
 def test_unported_options_are_refused(tmp_path):
-    from dynamicfuion_python_tpu_torch.apps.fusion_pipeline import FusionPipeline, run_fusion
+    from dynamicfuion_python_tpu_torch.apps.fusion_pipeline import FusionPipeline, _load_prior_network, run_fusion
     from dynamicfuion_python_tpu_torch.data.frame_sequence import SyntheticBendingPlaneSequence
     from dynamicfuion_python_tpu_torch.settings import Parameters
     from dynamicfuion_python_tpu_torch.utils.config import apply_overrides
 
     k = np.eye(3, dtype=np.float32)
-    refused = {
-        "fusion.use_neural_prior=true": "A12",
-        "fusion.tracking_span_mode=PREVIOUS_TO_CURRENT": "A12",
-        "alignment.data_term_impl=fast": "A5b",
-    }
-    for override, item in refused.items():
-        with pytest.raises(NotImplementedError, match=item):
-            FusionPipeline(apply_overrides(Parameters(), [override]), k, device="cpu")
+    # the neural prior, the tracking spans and the other data terms run now
+    for override in ("fusion.use_neural_prior=true", "fusion.tracking_span_mode=PREVIOUS_TO_CURRENT",
+                     "fusion.tracking_span_mode=KEYFRAME_TO_CURRENT", "alignment.data_term_impl=fast",
+                     "alignment.data_term_impl=autodiff", "fusion.pixel_anchor_computation_mode=SHORTEST_PATH"):
+        FusionPipeline(apply_overrides(Parameters(), [override]), k, device="cpu")
+    for mode in ("RENDERED_ONLY", "RENDERED_WITH_PREVIOUS_FRAME_OVERLAY"):
+        with pytest.raises(NotImplementedError, match="A10"):
+            FusionPipeline(apply_overrides(Parameters(), [
+                "fusion.use_neural_prior=true", f"fusion.source_image_mode={mode}",
+            ]), k, device="cpu")
+    with pytest.raises(NotImplementedError, match="msgpack"):
+        _load_prior_network(str(tmp_path / "deform_net.msgpack"), 4, "cpu")
     pipe = FusionPipeline(Parameters(), k, device="cpu")  # the default configuration runs
     with pytest.raises(NotImplementedError, match="A17"):
         pipe.enable_spmd(None)
-    with pytest.raises(NotImplementedError, match="A12"):
-        pipe.process_frame(np.zeros((4, 4), np.uint16), None, prior_flow=np.zeros((4, 4, 2), np.float32))
     params = apply_overrides(Parameters(), [
         "telemetry.record_rendered_warped_mesh=true", f"telemetry.output_directory={tmp_path}",
     ])

@@ -125,3 +125,30 @@ def test_fixed_loop_stops_where_jax_stops():
     # iterating on changes the result: the flag really stopped the loop
     full, _ = P._icp_level(*p_in, torch.as_tensor(eye), 10, 0.07, update_threshold=0.0)
     assert not torch.equal(full, pt)
+
+
+@pytest.mark.parametrize("threads", [1, 2, 3])
+def test_result_independent_of_the_thread_count(threads):
+    """The odometry's result does not depend on the CPU thread count.
+
+    ``test_torch_entry_point.py::test_rigid_pipeline_node_translations`` was
+    unsteady across whole-suite runs: the normal equations' sums over pixels
+    were f32 matrix products, which a CPU splits by its thread count, so the
+    pose of the bending plane's frame 2 moved by up to 2.5e-7 between 1-8
+    threads and the fits after it moved the final node translations by up
+    to 1.5e-4 m, above that test's 1e-4 m. The sums now accumulate in f64."""
+    from dynamicfuion_python_tpu_torch.data.frame_sequence import SyntheticBendingPlaneSequence
+
+    seq = SyntheticBendingPlaneSequence(frame_count=3, image_size=(64, 96), bend_per_frame=0.02, focal=120.0)
+    frames = list(seq)
+    pairs = [(frames[1].depth, frames[2].depth, seq.intrinsics), (_wavy_depth(), _rotated_target()[0], INTR)]
+    default = torch.get_num_threads()
+    for source, target, k in pairs:
+        args = (_t(source), _t(target), torch.as_tensor(k))
+        want = P.rigid_odometry_multi_scale(*args, depth_max=2.0)
+        torch.set_num_threads(threads)
+        try:
+            got = P.rigid_odometry_multi_scale(*args, depth_max=2.0)
+        finally:
+            torch.set_num_threads(default)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
