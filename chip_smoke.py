@@ -41,12 +41,37 @@ non-zero, on any failure):
      loading a seeded DeformNet checkpoint: the network must run on every
      fitted frame, every output be finite, and its forward on the card equal
      its forward on the CPU; the forward, its point-cloud GN and the prior's
-     share of the frame are timed.
-Phases 2, 8 and 9 each set the kernels' launch counts to 0 before they run
-and read them after: both kernels must have launched in each. The kernels
-line (phase 3's measurements with each path's launch counts) comes next, and
-the last line is {"ok": true, "device": {...}}. Without a CUDA device the
-script exits non-zero and prints no result.
+     share of the frame are timed;
+ 10. renderer: MeshRenderer on the main path's final warped canonical mesh
+     at 480x640 (bins of 1024 faces) against the same render with both
+     kernels replaced by their plain versions on the card: face ids equal,
+     depth and color within 1e-5, no bin or large-face drops; ms per render,
+     B1's device ms at this bin capacity beside its bound, bin statistics;
+ 11. rendered prior: the 448x640 bending plane with the seeded DeformNet in
+     RENDERED_WITH_PREVIOUS_FRAME_OVERLAY with the rendered-mesh recorder
+     on (3 frames), then the 448x640 shifted plane in RENDERED_ONLY with its
+     oracle flow (PREVIOUS_TO_CURRENT, so the rendered model is the
+     keyframe's state): finite metrics, both PNGs of each fitted frame
+     written and readable at 448x640, the slide recovered (median node x
+     within 2 cm); the rendered source depth against the keyframe's and the
+     prior's share of the frame reported;
+ 12. volume read-out: the main path's final volume ray-cast at 480x640 with
+     normals and colors under torch.cuda.set_sync_debug_mode("error"), its
+     welded mesh rendered by MeshRenderer (median |ray-cast depth - rendered
+     depth| under one voxel), marching tetrahedra against marching cubes,
+     sample_tsdf on the card equal to the CPU's within 1e-5;
+ 13. indexed: the reference's headline scene (64 spheres, 4,470,784 faces,
+     480x640) through rasterize_indexed (B2 on the plan's sorted faces, the
+     splat, the id remap) and through rasterize_splat on the faces expanded
+     in the caller's order, with the rasterizer bench's tier caps: no drops,
+     face ids equal but at equal-depth ties, depths within 1e-5; B2 held to
+     its plain version at this size, its device ms beside its byte bound.
+Phases 2 and 8-13 each set the kernels' launch counts to 0 before they drive
+their path and read them after: every kernel of a path must have launched in
+it (phase 13's path runs B2 only: its splat is plain PyTorch). The kernels
+line (phase 3's measurements, each path's launch counts and the new shapes'
+times) comes next, and the last line is {"ok": true, "device": {...}}.
+Without a CUDA device the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -299,7 +324,7 @@ def phase_main_path():
         "mean_frame_s": sum(r["wall_s"] for r in per_frame) / len(per_frame),
         "peak_mem_mib": torch.cuda.max_memory_allocated() / 2**20,
     })
-    return last, launches, len(per_frame)
+    return last, launches, len(per_frame), pipe
 
 
 def phase_kernels(last, launches, fitted_frames):
@@ -822,14 +847,410 @@ def phase_deform_net() -> dict:
     return launches
 
 
+class plain_kernels:
+    """Inside the block, the rasterizer reaches both kernels' plain PyTorch
+    versions (on the card's tensors) instead of the kernels."""
+
+    def __enter__(self):
+        from dynamicfuion_python_tpu_torch.ops import mesh_expand as me
+        from dynamicfuion_python_tpu_torch.ops import rasterize as rz
+
+        def expand(vertices, triangles, intrinsics, near=0.05, far=10.0):
+            fv, valid = me.expand_project_faces_plain(vertices, triangles, intrinsics, near, far)
+            return fv, valid, None
+
+        self.saved = (rz.expand_project_faces, rz.rasterize_tiles)
+        rz.expand_project_faces, rz.rasterize_tiles = expand, rz.rasterize_tiles_plain
+        return self
+
+    def __exit__(self, *exc):
+        from dynamicfuion_python_tpu_torch.ops import rasterize as rz
+
+        rz.expand_project_faces, rz.rasterize_tiles = self.saved
+
+
+class Active:
+    """Wraps a callable; :attr:`active` is True while it runs."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.active = False
+
+    def __call__(self, *args, **kwargs):
+        self.active = True
+        try:
+            return self.fn(*args, **kwargs)
+        finally:
+            self.active = False
+
+
+def host_syncs(fn):
+    """Run ``fn`` under torch.cuda.set_sync_debug_mode("warn"); returns (its
+    result, the number of host syncs it issued)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def traced(fn) -> dict:
+    """One traced call of ``fn``: its device time, its kernel launches and
+    its costliest kernels."""
+    import torch
+
+    from dynamicfuion_python_tpu_torch.apps.profile_frame import device_busy_ms, device_us
+
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = sorted((e for e in events if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: -device_us(e))
+    return {"device_ms": device_busy_ms(events), "kernel_launches": sum(e.count for e in kernels),
+            "top_kernels": [{"name": e.key[:70], "device_ms": device_us(e) / 1e3, "calls": e.count}
+                            for e in kernels[:5]]}
+
+
+def percentiles(values, qs=(50, 95)) -> dict:
+    import numpy as np
+
+    v = np.asarray(values, np.float64)
+    return {f"p{q}": float(np.percentile(v, q)) if v.size else None for q in qs}
+
+
+def bin_stats(table) -> dict:
+    occ = (table >= 0).sum(1)
+    return {"tiles": int(table.shape[0]), "bin_capacity": int(table.shape[1]), "entries": int(occ.sum()),
+            "mean_entries": float(occ.float().mean()), "max_entries": int(occ.max())}
+
+
+def phase_renderer(pipe):
+    """MeshRenderer on the main path's final warped canonical mesh, against
+    the same render through the kernels' plain versions; returns B1's and
+    B2's launches and the B1 measurements at bin capacity 1024."""
+    import torch
+
+    from dynamicfuion_python_tpu_torch.models.renderer import MeshRenderer
+    from dynamicfuion_python_tpu_torch.ops import mesh_expand as me
+    from dynamicfuion_python_tpu_torch.ops import native
+    from dynamicfuion_python_tpu_torch.ops import rasterize as rz
+
+    size = tuple(pipe.previous_depth.shape)
+    verts = pipe.warp_field.warp_points(pipe.canonical_vertices).contiguous()
+    tris = pipe.canonical_triangles
+    renderer = MeshRenderer(size, pipe.intrinsics)
+    b1 = LastCall(rz, "rasterize_tiles")
+    native.reset_launch_counts()
+    try:
+        (color, depth), syncs = host_syncs(lambda: renderer.render_mesh(verts, tris))
+        torch.cuda.synchronize()
+    finally:
+        b1.restore()
+    launches = dict(native.launch_counts)
+    for kernel in native.KERNELS:
+        check(launches[kernel] > 0, f"renderer: kernel {kernel} was not launched")
+    with plain_kernels():
+        p_color, p_depth = renderer.render_mesh(verts, tris)
+    # the fragments themselves: the kernels' face ids against the plain ones
+    fv, valid = rz.extract_face_vertices(verts, tris, pipe.intrinsics, size)
+    p_fv, p_valid = me.expand_project_faces_plain(verts, tris, pipe.intrinsics)
+    check(torch.equal(fv, p_fv) and torch.equal(valid, p_valid), "renderer: B2 differs from its plain version")
+    kw = dict(max_faces_per_bin=renderer.max_faces_per_bin, tile_size=renderer.tile_size, return_overflow=True)
+    frag, overflow = rz.rasterize_binned(fv, valid, size, **kw)
+    with plain_kernels():
+        p_frag, _ = rz.rasterize_binned(fv, valid, size, **kw)
+    torch.cuda.synchronize()
+    ids_equal = torch.equal(frag.face_indices, p_frag.face_indices)
+    errs = {"depth": float((depth - p_depth).abs().max()), "color": float((color - p_color).abs().max()),
+            "fragment_depth": float((frag.depths - p_frag.depths).abs().max())}
+    drops = {k: int(v) for k, v in overflow.items()}
+    check(ids_equal, "renderer: B1's face ids differ from the plain version's")
+    check(max(errs.values()) <= 1e-5, f"renderer: kernels differ from the plain versions ({errs})")
+    check(drops == {"dropped_large_faces": 0, "dropped_bin_entries": 0}, f"renderer: rasterizer drops {drops}")
+    ms = cuda_time_ms(lambda: renderer.render_mesh(verts, tris), 20)
+    faces, table, image_size, tile_size = b1.args
+    with plain_kernels():
+        render_plain_ms = cuda_time_ms(lambda: renderer.render_mesh(verts, tris), 2, warmup=1)
+    b1_ms = cuda_time_ms(lambda: rz.rasterize_tiles_cuda(*b1.args, **b1.kwargs), 50)
+    b1_plain_ms = cuda_time_ms(lambda: rz.rasterize_tiles_plain(*b1.args, **b1.kwargs), 2, warmup=1)
+    b1_device = device_ms_per_launch({"rasterize_tiles_kernel": lambda: rz.rasterize_tiles_cuda(*b1.args, **b1.kwargs)},
+                                     50)["rasterize_tiles_kernel"]
+    work = rz.rasterize_tiles_work(faces, table, image_size, tile_size, b1.kwargs.get("blur_radius", 0.0))
+    b1_bound = max(work["bytes"] / PEAK_BYTES_PER_S, work["operations"] / PEAK_FP32_PER_S) * 1e3
+    row = {
+        "phase": "renderer", "image_size": list(size), "faces": int(tris.shape[0]), "vertices": int(verts.shape[0]),
+        "launches": launches, "host_syncs_per_render": syncs, "face_ids_equal": ids_equal, "max_abs_err": errs,
+        "drops": drops, "ms_per_render": ms, "ms_per_render_plain_kernels": render_plain_ms,
+        "render_trace": traced(lambda: renderer.render_mesh(verts, tris)),
+        "hit_pixels": int((depth > 0).sum()), "bins": bin_stats(table),
+        "b1": {"ms": b1_ms, "device_ms": b1_device, "plain_ms": b1_plain_ms, "bound_ms": b1_bound,
+               "bound_by": "bytes" if work["bytes"] / PEAK_BYTES_PER_S > work["operations"] / PEAK_FP32_PER_S
+               else "operations", "bytes": work["bytes"], "operations": work["operations"],
+               "tests": work["tests"], "distinct_faces": work["distinct_faces"]},
+    }
+    emit(row)
+    return launches, row
+
+
+def phase_rendered_prior() -> dict:
+    """The prior's rendered source-image modes with the rendered-mesh
+    recorder: the seeded DeformNet on the 448x640 bending plane in the
+    overlay mode, and the oracle flow on the 448x640 shifted plane in
+    RENDERED_ONLY. Returns each run's kernel launches."""
+    import torch
+
+    from dynamicfuion_python_tpu_torch.apps.fusion_pipeline import FusionPipeline
+    from dynamicfuion_python_tpu_torch.apps.profile_frame import PRIOR_IMAGE_SIZE, make_shifted_plane, make_slice
+    from dynamicfuion_python_tpu_torch.models import deform_net as dn
+    from dynamicfuion_python_tpu_torch.ops import native
+    from dynamicfuion_python_tpu_torch.utils.config import apply_overrides
+    from dynamicfuion_python_tpu_torch.utils.telemetry import TelemetryRecorder, read_png
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Path(tmp) / "deform_net.pt"
+        torch.save(dn.seeded_state_dict(dn.DeformNet(), torch.Generator().manual_seed(DEFORM_NET_SEED)), ckpt)
+        overlay, overlay_seq = make_slice(frame_count=3, image_size=PRIOR_IMAGE_SIZE)
+        shifted, shifted_seq = make_shifted_plane(frame_count=3)
+        runs = {
+            "deform_net_overlay": (apply_overrides(overlay, [
+                "fusion.use_neural_prior=true", f"fusion.prior_checkpoint={ckpt}",
+                "fusion.source_image_mode=RENDERED_WITH_PREVIOUS_FRAME_OVERLAY"]), overlay_seq, None),
+            "oracle_flow_rendered_only": (apply_overrides(shifted, [
+                "fusion.source_image_mode=RENDERED_ONLY", "fusion.tracking_span_mode=PREVIOUS_TO_CURRENT",
+                "fusion.pixel_anchor_computation_mode=EUCLIDEAN"]), shifted_seq, shifted_seq.oracle_flow(1)),
+        }
+        for name, (params, seq, flow) in runs.items():
+            params = apply_overrides(params, [
+                "telemetry.record_rendered_warped_mesh=true", f"telemetry.output_directory={tmp}",
+                "telemetry.print_runtime=false"])
+            frames = list(seq)
+            native.reset_launch_counts()
+            pipe = FusionPipeline(params, seq.intrinsics)
+            pipe.telemetry = TelemetryRecorder(params.telemetry, name)
+            in_prior = Active(pipe._apply_prior)
+            prior = pipe._apply_prior = Timed(in_prior)
+            sources = []  # (rendered depth, keyframe depth) of each render for the prior
+            render = pipe._render_warped_mesh
+
+            def recording_render(size, render=render, in_prior=in_prior, pipe=pipe, sources=sources):
+                color, depth = render(size)
+                if in_prior.active:
+                    sources.append((depth, pipe.keyframe_source[0]))
+                return color, depth
+
+            pipe._render_warped_mesh = recording_render
+            pipe.initialize(frames[0].depth, frames[0].color)
+            rows = []
+            for f in frames[1:]:
+                t0 = time.perf_counter()
+                m = pipe.process_frame(f.depth, f.color, prior_flow=flow)
+                torch.cuda.synchronize()
+                rows.append(_frame_row(pipe, m, time.perf_counter() - t0, {"prior_s": prior.seconds[-1]}))
+            launches[name] = dict(native.launch_counts)
+            gaps = []
+            for depth_r, kf in sources:
+                kf_m = kf.to(torch.float32) / params.fusion.depth_scale
+                both = (depth_r > 0) & (kf_m > 0)
+                d = (depth_r - kf_m)[both].abs().cpu().numpy()
+                gaps.append({"coverage_of_keyframe": float(both.sum()) / max(int((kf_m > 0).sum()), 1),
+                             **{f"abs_diff_m_{k}": v for k, v in percentiles(d).items()}})
+            pngs = {}
+            for row in rows:
+                for kind in ("color", "depth"):
+                    path = pipe.telemetry.run_dir / f"{row['frame']:06d}_rendered_{kind}.png"
+                    pngs[path.name] = list(read_png(path).shape) if path.exists() else None
+            frame_s = sum(r["wall_s"] for r in rows)
+            emit({"phase": "rendered_prior", "run": name, "image_size": list(PRIOR_IMAGE_SIZE), "frames": rows,
+                  "launches": launches[name], "rendered_vs_keyframe_depth": gaps, "pngs": pngs,
+                  "prior_share_of_frame": sum(r["prior_s"] for r in rows) / frame_s, "frames_s": frame_s})
+            for kernel in native.KERNELS:
+                check(launches[name][kernel] > 0, f"rendered prior {name}: kernel {kernel} was not launched")
+            check(len(sources) == len(rows), f"rendered prior {name}: {len(sources)} rendered sources "
+                  f"for {len(rows)} fitted frames")
+            for row in rows:
+                check(row["translations_finite"] and all(math.isfinite(x) for x in row["data_loss"]),
+                      f"rendered prior {name}: frame {row['frame']}: non-finite output")
+            check(all(shape is not None and shape[:2] == list(PRIOR_IMAGE_SIZE) for shape in pngs.values())
+                  and len(pngs) == 2 * len(rows), f"rendered prior {name}: rendered PNGs {pngs}")
+            if flow is not None:
+                for row in rows:
+                    shift = seq.shift * row["frame"]
+                    check(row["prior_valid"] is True and all(row["valid_solve"]),
+                          f"rendered prior {name}: frame {row['frame']}: prior or solve invalid")
+                    check(abs(row["median_node_x"] - shift) <= 0.02,
+                          f"rendered prior {name}: frame {row['frame']} median node x {row['median_node_x']} "
+                          f"vs {shift}")
+    return launches
+
+
+def phase_volume_readout(pipe):
+    """Ray casting, the rendered mesh, marching tetrahedra and sample_tsdf
+    on the main path's final volume; returns the kernel launches of its
+    render."""
+    import dataclasses
+
+    import torch
+
+    from dynamicfuion_python_tpu_torch.models.renderer import MeshRenderer
+    from dynamicfuion_python_tpu_torch.models.voxel_block_grid import extract_mesh_fitter_arrays
+    from dynamicfuion_python_tpu_torch.ops import native
+
+    volume = pipe.volume
+    h, w = pipe.previous_depth.shape
+    k = pipe.intrinsics
+
+    def cast():
+        return volume.ray_cast(k, None, width=w, height=h, with_normals=True, with_color=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # any host sync in the call raises
+    try:
+        rays = cast()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ray_ms = cuda_time_ms(cast, 3, warmup=1)
+    n_steps = int(math.ceil((volume.depth_max - 0.1) / (0.5 * volume.sdf_truncation_distance))) + 1
+
+    # the welded mesh in the fitter's padded arrays (faces past the count
+    # point at the padding vertex, which the near plane clips)
+    verts, faces, v_count, t_count = extract_mesh_fitter_arrays(volume, 1 << 20, 1 << 19, 0.0)
+    renderer = MeshRenderer((h, w), k)
+    native.reset_launch_counts()
+    _, depth_r = renderer.render_mesh(verts, faces)
+    torch.cuda.synchronize()
+    launches = dict(native.launch_counts)
+    for kernel in native.KERNELS:
+        check(launches[kernel] > 0, f"volume read-out: kernel {kernel} was not launched")
+    both = rays["mask"] & (depth_r > 0)
+    diff = (rays["depth"] - depth_r)[both].abs().cpu().numpy()
+    stats = percentiles(diff)
+    check(both.sum() > 10000 and stats["p50"] < volume.voxel_size,
+          f"volume read-out: ray-cast vs rendered depth {stats} over {int(both.sum())} pixels")
+
+    _, tetra_count = volume.extract_triangle_soup(max_triangles=1 << 21, method="tetrahedra")
+    _, cube_count = volume.extract_triangle_soup(max_triangles=1 << 21)
+    tetra_ms = cuda_time_ms(lambda: volume.extract_triangle_soup(max_triangles=1 << 21, method="tetrahedra"), 2,
+                            warmup=1)
+
+    hits = rays["points"][rays["mask"]]
+    gen = torch.Generator().manual_seed(0)
+    probes = torch.cat([hits[::7], hits[::13] + 0.01 * torch.randn(hits[::13].shape, generator=gen).to(hits)])
+    cpu_volume = dataclasses.replace(volume, **{
+        f.name: getattr(volume, f.name).cpu() for f in dataclasses.fields(volume)
+        if isinstance(getattr(volume, f.name), torch.Tensor)})
+    val, valid = volume.sample_tsdf(probes)
+    cpu_val, cpu_valid = cpu_volume.sample_tsdf(probes.cpu())
+    sample_err = float((val.cpu() - cpu_val)[cpu_valid].abs().max())
+    check(torch.equal(valid.cpu(), cpu_valid) and sample_err <= 1e-5,
+          f"volume read-out: sample_tsdf card vs CPU {sample_err}")
+    row = {
+        "phase": "volume_readout", "image_size": [h, w], "ray_cast_ms": ray_ms, "ray_steps": n_steps,
+        "ray_hits": int(rays["mask"].sum()), "ray_cast_sync_free": True, "ray_cast_trace": traced(cast),
+        "normals_finite": bool(torch.isfinite(rays["normals"]).all()),
+        "rendered_hits": int((depth_r > 0).sum()), "both_hit": int(both.sum()),
+        "ray_vs_rendered_depth_m": stats, "voxel_size": volume.voxel_size,
+        "mesh_triangles": int(t_count), "mesh_vertices": int(v_count), "launches": launches,
+        "tetrahedra_triangles": int(tetra_count), "cubes_triangles": int(cube_count),
+        "tetrahedra_ms": tetra_ms, "sample_tsdf_probes": int(probes.shape[0]),
+        "sample_tsdf_card_vs_cpu": sample_err, "sample_tsdf_valid": int(cpu_valid.sum()),
+    }
+    check(row["normals_finite"], "volume read-out: non-finite normals")
+    emit(row)
+    return launches
+
+
+def phase_indexed():
+    """rasterize_indexed and rasterize_splat on the reference's headline
+    scene; returns B2's launches and measurements at 4,470,784 faces."""
+    import torch
+
+    from dynamicfuion_python_tpu_torch.apps.profile_frame import (
+        HEADLINE_FOCAL, HEADLINE_IMAGE_SIZE, build_scene, headline_tier_caps)
+    from dynamicfuion_python_tpu_torch.ops import mesh_expand as me
+    from dynamicfuion_python_tpu_torch.ops import native
+    from dynamicfuion_python_tpu_torch.ops import rasterize as rz
+    from dynamicfuion_python_tpu_torch.utils.device import resolve_device
+
+    h, w = HEADLINE_IMAGE_SIZE
+    verts_np, faces_np = build_scene()
+    dev = resolve_device()  # the card
+    verts = torch.as_tensor(verts_np, device=dev)
+    faces = torch.as_tensor(faces_np, device=dev)
+    k = torch.tensor([[HEADLINE_FOCAL, 0, w / 2], [0, HEADLINE_FOCAL, h / 2], [0, 0, 1]], device=dev)
+    f = faces.shape[0]
+    caps = headline_tier_caps(f)
+    plan = me.ExpansionPlan(faces, verts.shape[0])
+    native.reset_launch_counts()
+    frag_i, over_i = me.rasterize_indexed(verts, plan, k, (h, w), **caps)
+    torch.cuda.synchronize()
+    launches = dict(native.launch_counts)
+    check(launches["mesh_expand"] > 0, "indexed: kernel mesh_expand was not launched")
+    fv, valid = rz.extract_face_vertices(verts, faces, k, (h, w))
+    frag_s, over_s = rz.rasterize_splat(fv, valid, (h, w), return_overflow=True, **caps)
+    drops = {"indexed": {n: int(v) for n, v in over_i.items()}, "splat": {n: int(v) for n, v in over_s.items()}}
+    check(all(v == 0 for d in drops.values() for v in d.values()), f"indexed: drops {drops}")
+    ids_i, ids_s = frag_i.face_indices, frag_s.face_indices
+    differ = ids_i != ids_s
+    depth_err = float((frag_i.depths - frag_s.depths).abs().max())
+    check(depth_err <= 1e-5, f"indexed: depths differ from the splat's by {depth_err}")
+    # where the face ids differ the two faces tie: both orders evaluate each
+    # face alike, so the winners' depths are equal exactly
+    check(bool(((ids_i >= 0) == (ids_s >= 0)).all()), "indexed: coverage differs from the splat's")
+    check(bool((frag_i.depths[differ] == frag_s.depths[differ]).all()),
+          "indexed: face ids differ where the depths do not tie")
+    covered = int((ids_s >= 0).sum())
+
+    # B2 at this size, on the plan's sorted faces, against its plain version
+    tri = plan.sorted_triangles
+    got = me.expand_project_faces_cuda(verts, tri, k)
+    want = me.expand_project_faces_plain(verts, tri, k)
+    torch.cuda.synchronize()
+    b2_err = float((got[0] - want[0]).abs().max())
+    check(torch.equal(got[1], want[1]) and b2_err == 0.0, f"indexed: B2 not bit-equal ({b2_err})")
+    b2_ms = cuda_time_ms(lambda: me.expand_project_faces_cuda(verts, tri, k), 20)
+    b2_plain = cuda_time_ms(lambda: me.expand_project_faces_plain(verts, tri, k), 5, warmup=1)
+    b2_device = device_ms_per_launch({"mesh_expand_kernel": lambda: me.expand_project_faces_cuda(verts, tri, k)},
+                                     20)["mesh_expand_kernel"]
+    n_verts = verts.shape[0]
+    b2_bytes = n_verts * 12 + f * 12 + 36 + f * 36 + f
+    b2_ops = f * EXPAND_OPS_PER_FACE
+    b2_bound = max(b2_bytes / PEAK_BYTES_PER_S, b2_ops / PEAK_FP32_PER_S) * 1e3
+    indexed_ms = cuda_time_ms(lambda: me.rasterize_indexed(verts, plan, k, (h, w), **caps), 5, warmup=1)
+    splat_ms = cuda_time_ms(lambda: rz.rasterize_splat(fv, valid, (h, w), **caps), 5, warmup=1)
+    plan_ms = cuda_time_ms(lambda: me.ExpansionPlan(faces, n_verts), 3, warmup=1)
+    b2 = {"faces": f, "vertices": n_verts, "ms": b2_ms, "device_ms": b2_device, "plain_ms": b2_plain,
+          "bound_ms": b2_bound, "bytes": b2_bytes, "operations": b2_ops, "max_abs_err": b2_err,
+          "bound_by": "bytes" if b2_bytes / PEAK_BYTES_PER_S > b2_ops / PEAK_FP32_PER_S else "operations"}
+    row = {"phase": "indexed", "image_size": [h, w], "faces": f, "vertices": n_verts, "tier_caps": caps,
+           "launches": launches, "drops": drops, "covered_pixels": covered, "tied_pixels": int(differ.sum()),
+           "depth_max_abs_err": depth_err, "rasterize_indexed_ms": indexed_ms, "rasterize_splat_ms": splat_ms,
+           "rasterize_indexed_trace": traced(lambda: me.rasterize_indexed(verts, plan, k, (h, w), **caps)),
+           "expansion_plan_ms": plan_ms, "b2": b2}
+    emit(row)
+    return launches, b2
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    started = time.perf_counter()
     phase_build()
-    last, launches, fitted = phase_main_path()
+    last, launches, fitted, pipe = phase_main_path()
     kernels = phase_kernels(last, launches, fitted)
     phase_odometry(last["odometry"])
     phase_entry_point()
@@ -837,10 +1258,23 @@ def main() -> int:
     phase_data_terms(last["data_term"])
     prior_launches = phase_neural_prior()
     deform_launches = phase_deform_net()
+    renderer_launches, renderer = phase_renderer(pipe)
+    rendered_launches = phase_rendered_prior()
+    readout_launches = phase_volume_readout(pipe)
+    indexed_launches, b2_headline = phase_indexed()
     for k in kernels:
         for run, counts in prior_launches.items():
             k[f"launches_neural_prior_{run}"] = counts[k["name"]]
         k["launches_deform_net"] = deform_launches[k["name"]]
+        k["launches_renderer"] = renderer_launches[k["name"]]
+        for run, counts in rendered_launches.items():
+            k[f"launches_rendered_prior_{run}"] = counts[k["name"]]
+        k["launches_volume_readout"] = readout_launches[k["name"]]
+        k["launches_indexed"] = indexed_launches[k["name"]]
+    b1_row, b2_row = kernels
+    b1_row["renderer_bin_capacity_1024"] = renderer["b1"]
+    b2_row["indexed_4470784_faces"] = b2_headline
+    emit({"phase": "done", "seconds": time.perf_counter() - started})
     emit({"kernels": kernels})
     emit({
         "ok": True,

@@ -21,10 +21,13 @@ current frame and starts the fit from them; the keyframe rolls per
 As in the JAX package, the first frame after ``initialize`` runs no
 odometry: ``initialize`` leaves ``previous_depth`` unset.
 
-Not ported yet, and refused with ``NotImplementedError``: the rendered
-source-image modes of the prior and the rendered-mesh recorder (both need the
-renderer, ROADMAP A10), Flax msgpack prior checkpoints and the SPMD frame loop
-(A17).
+The prior's source image is the keyframe's, or (``fusion.source_image_mode``
+``RENDERED_ONLY`` / ``RENDERED_WITH_PREVIOUS_FRAME_OVERLAY``) the canonical
+mesh warped by the current field and rendered by ``MeshRenderer``, with the
+keyframe's valid pixels laid over it in the overlay mode; the rendered-mesh
+recorder (``telemetry.record_rendered_warped_mesh``) renders the same mesh
+after each frame. Not ported yet, and refused with ``NotImplementedError``:
+Flax msgpack prior checkpoints and the SPMD frame loop (ROADMAP A17).
 
 Run:  python -m dynamicfuion_python_tpu_torch.apps.fusion_pipeline \\
           --sequence <dir>|synthetic [--frames N] [--size HxW] \\
@@ -46,6 +49,7 @@ from dynamicfuion_python_tpu_torch.data.frame_sequence import (
 from dynamicfuion_python_tpu_torch.models.deform_net import DeformNet, TrackingGuards
 from dynamicfuion_python_tpu_torch.models.fitter import FitterConfig, IterationMode, fit_to_image
 from dynamicfuion_python_tpu_torch.models.gn_point_cloud_optimizer import GnConfig
+from dynamicfuion_python_tpu_torch.models.renderer import MeshRenderer
 from dynamicfuion_python_tpu_torch.models.torch_weight_conversion import load_deform_net_checkpoint
 from dynamicfuion_python_tpu_torch.models.tracking_prior import NeuralTrackingPrior, rgbxyz_from_depth
 from dynamicfuion_python_tpu_torch.models.voxel_block_grid import (
@@ -100,8 +104,6 @@ class FusionPipeline:
     def __init__(self, params: Parameters, intrinsics: np.ndarray, device=None):
         a = params.alignment
         f = params.fusion
-        if f.use_neural_prior:
-            _refuse_rendered_source(f.source_image_mode)
         self.device = resolve_device(device)
         self.params = params
         self.intrinsics = torch.as_tensor(np.asarray(intrinsics), dtype=torch.float32, device=self.device)
@@ -144,6 +146,7 @@ class FusionPipeline:
         self.keyframe_anchors: tuple | None = None
         self.node_graph_edges: np.ndarray | None = None
         self._last_prior_arrays: dict = {}
+        self.renderer: MeshRenderer | None = None  # built at first use, at the frame's size
         self.fitter_config = FitterConfig(
             max_iterations=a.max_iteration_count,
             min_update_threshold=a.min_update_threshold,
@@ -334,13 +337,33 @@ class FusionPipeline:
             return self.frames_processed % self.params.fusion.keyframe_interval == 0
         return False  # FIRST_TO_CURRENT
 
+    def _render_warped_mesh(self, image_size) -> tuple[torch.Tensor, torch.Tensor]:
+        """The canonical mesh warped by the current field, rendered ->
+        (color f32[H, W, 3], depth f32[H, W] in meters, 0 = miss)."""
+        if self.renderer is None:
+            self.renderer = MeshRenderer(image_size, self.intrinsics, device=self.device)
+        warped = self.warp_field.warp_points(self.canonical_vertices)
+        return self.renderer.render_mesh(warped, self.canonical_triangles)
+
     def _prior_source_rgbxyz(self) -> torch.Tensor:
         """The prior's source RGBD per ``fusion.source_image_mode``: the
-        keyframe's images (the rendered modes need the renderer)."""
-        _refuse_rendered_source(self.params.fusion.source_image_mode)
-        depth, color = self.keyframe_source
+        keyframe's images, the rendered current model, or the rendered model
+        with the keyframe's valid pixels laid over it. Stays on the device."""
+        kf_depth, kf_color = self.keyframe_source
         f = self.params.fusion
-        return rgbxyz_from_depth(depth, color, self.intrinsics, f.depth_scale, f.far_clip_distance)
+        mode = f.source_image_mode
+        if mode == SourceImageMode.IMAGE_ONLY:
+            return rgbxyz_from_depth(kf_depth, kf_color, self.intrinsics, f.depth_scale, f.far_clip_distance)
+        color_r, depth_r = self._render_warped_mesh(tuple(kf_depth.shape[:2]))
+        depth_mm = depth_r * f.depth_scale
+        color_u8 = (torch.clamp(color_r, 0, 1) * 255).to(torch.uint8)
+        if mode == SourceImageMode.RENDERED_WITH_PREVIOUS_FRAME_OVERLAY:
+            kf_valid = kf_depth > 0
+            depth_mm = torch.where(kf_valid, kf_depth.to(torch.float32), depth_mm)
+            if kf_color is not None:
+                kf_rgb = self._frame(kf_color).to(torch.uint8)
+                color_u8 = torch.where(kf_valid[..., None], kf_rgb, color_u8)
+        return rgbxyz_from_depth(depth_mm, color_u8, self.intrinsics, f.depth_scale, f.far_clip_distance)
 
     def _prior_pixel_anchors(self, source_points: torch.Tensor):
         """Pixel anchors of the prior's source image against the node
@@ -505,6 +528,9 @@ class FusionPipeline:
             )
             if self._last_prior_arrays:
                 self.telemetry.record_correspondences(self.frames_processed, **self._last_prior_arrays)
+            if self.telemetry.config.record_rendered_warped_mesh:
+                color_r, depth_r = self._render_warped_mesh(tuple(depth_t.shape))
+                self.telemetry.record_rendered_warped_mesh(self.frames_processed, color_r, depth_r)
         metrics = {
             "data_loss": diagnostics["data_loss"],
             "arap_loss": diagnostics["arap_loss"],
@@ -552,14 +578,6 @@ def resolve_frame_metrics(metrics: dict) -> dict:
     out["dropped_large_faces"] = [int(x) for x in metrics["dropped_large_faces"]]
     out["dropped_bin_entries"] = [int(x) for x in metrics["dropped_bin_entries"]]
     return out
-
-
-def _refuse_rendered_source(mode: SourceImageMode) -> None:
-    if mode != SourceImageMode.IMAGE_ONLY:
-        raise NotImplementedError(
-            f"fusion.source_image_mode={mode.name} renders the model, and the renderer is not ported "
-            "yet (ROADMAP A10)"
-        )
 
 
 def _load_prior_network(checkpoint_path: str, num_nodes: int, device) -> DeformNet:

@@ -4,8 +4,9 @@ one frame traced with ``torch.profiler``.
     python -m dynamicfuion_python_tpu_torch.apps.profile_frame [--frames N] [--out DIR]
 
 Defines the slice (:func:`make_slice`), which chip_smoke.py's main path runs
-too, and the neural prior's 448x640 shifted-plane scene
-(:func:`make_shifted_plane`). Warms up on the first frames, then runs the last frame twice from the
+too, the neural prior's 448x640 shifted-plane scene
+(:func:`make_shifted_plane`) and the indexed rasterizer's headline scene
+(:func:`build_scene`). Warms up on the first frames, then runs the last frame twice from the
 same state: untraced on a copy of the pipeline (its wall time), and traced.
 Prints one JSON line: both wall times, the summed device time of the traced
 frame's kernels, the device's idle share of the untraced frame (and of the
@@ -119,6 +120,58 @@ def make_shifted_plane(frame_count: int = 3):
     static and ICP would explain the motion), and the shifted plane."""
     params = apply_overrides(Parameters(), [*SLICE_OVERRIDES, "alignment.use_rigid_alignment=false"])
     return params, ShiftedPlaneSequence(frame_count=frame_count)
+
+
+# the reference's headline rasterization scene: 64 objects, 4.47M faces at
+# 480x640, focal 580 (benchmarks/bench_rasterizer.py), with that bench's tier
+# caps for the splat path (the 2x2 tier ~96k faces, 4x4 ~0 at these sizes)
+HEADLINE_IMAGE_SIZE = (480, 640)
+HEADLINE_FOCAL = 580.0
+
+
+def headline_tier_caps(num_faces: int) -> dict:
+    return {"quad_cap": max(4096, num_faces // 32), "hex_cap": max(4096, num_faces // 512),
+            "oct_cap": 2048, "max_large_faces": 512}
+
+
+def uv_sphere(rings: int, segments: int, radius: float, center) -> tuple[np.ndarray, np.ndarray]:
+    """-> (verts f32[V, 3], faces int32[F, 3]) with F = 2 * segments * (rings - 1)."""
+    phi = np.linspace(0, np.pi, rings + 1)[1:-1]
+    theta = np.linspace(0, 2 * np.pi, segments, endpoint=False)
+    pp, tt = np.meshgrid(phi, theta, indexing="ij")
+    ring_pts = np.stack([np.sin(pp) * np.cos(tt), np.sin(pp) * np.sin(tt), np.cos(pp)], -1).reshape(-1, 3)
+    verts = np.concatenate([[[0, 0, 1.0]], ring_pts, [[0, 0, -1.0]]], 0) * radius + np.asarray(center)
+    n_ring = rings - 1
+    faces = []
+    top, bottom = 0, 1 + n_ring * segments
+    ring0 = 1
+    for s in range(segments):
+        faces.append([top, ring0 + s, ring0 + (s + 1) % segments])
+    for r in range(n_ring - 1):
+        a = ring0 + r * segments
+        b = a + segments
+        for s in range(segments):
+            s1 = (s + 1) % segments
+            faces.append([a + s, b + s, b + s1])
+            faces.append([a + s, b + s1, a + s1])
+    last = ring0 + (n_ring - 1) * segments
+    for s in range(segments):
+        faces.append([bottom, last + (s + 1) % segments, last + s])
+    return verts.astype(np.float32), np.asarray(faces, np.int32)
+
+
+def build_scene(grid: int = 8, rings: int = 149, segments: int = 236) -> tuple[np.ndarray, np.ndarray]:
+    """64 UV spheres of 2 * segments * (rings - 1) faces (4,470,784 in all,
+    2,235,520 vertices) in a grid facing the camera, 4.0-4.2 m away."""
+    base_v, base_f = uv_sphere(rings, segments, 0.22, (0, 0, 0))
+    half = (grid - 1) / 2
+    verts_all, faces_all = [], []
+    for i in range(grid):
+        for j in range(grid):
+            center = np.asarray([(j - half) * 0.5, (i - half) * 0.5, 4.0 + 0.1 * ((i + j) % 3)], np.float32)
+            faces_all.append(base_f + len(base_v) * len(verts_all))
+            verts_all.append(base_v + center)
+    return np.concatenate(verts_all), np.concatenate(faces_all)
 
 
 def device_busy_ms(events) -> float:

@@ -6,15 +6,19 @@ index, see ``ops/voxel_block_hash.py``) holds per-block tsdf / weight / color
 voxels. Activation is sort + compaction into free slots; integration runs
 over all occupied blocks (rigid) or a padded active-block list (non-rigid,
 through the warp field); extraction is marching cubes over blocks with +1
-halos stitched from neighbor blocks, then welding on a 1e-6 m grid.
-
-Ray casting and the marching-tetrahedra extractor are not ported yet.
+halos stitched from neighbor blocks (or marching tetrahedra, the denser
+alternative), then welding on a 1e-6 m grid. The volume reads out by
+trilinear sampling (tsdf, color) and by ray casting: a march at half the
+truncation distance with a fixed step count, a Python loop over tensors
+with no host sync, then one secant step at the first zero crossing.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
+import numpy as np
 import torch
 
 from dynamicfuion_python_tpu_torch.ops import voxel_block_hash as vbh
@@ -25,6 +29,7 @@ from dynamicfuion_python_tpu_torch.ops.camera import (
 )
 from dynamicfuion_python_tpu_torch.ops.compaction import compact_mask_indices
 from dynamicfuion_python_tpu_torch.ops.marching_cubes import marching_cubes
+from dynamicfuion_python_tpu_torch.ops.marching_tetrahedra import marching_tetrahedra
 from dynamicfuion_python_tpu_torch.ops.warp import blend_warp
 from dynamicfuion_python_tpu_torch.utils.device import resolve_device
 
@@ -33,6 +38,14 @@ def _cube_offsets(values, dtype, device) -> torch.Tensor:
     return torch.tensor(
         [[a, b, c] for a in values for b in values for c in values], dtype=dtype, device=device
     )
+
+
+def _unit_cube_corners(device) -> torch.Tensor:
+    """int32[8, 3]: the corners of the unit cube in ``_cube_offsets`` order,
+    made on the device from an arange (no host copy, so callers stay
+    sync-free)."""
+    a = torch.arange(8, dtype=torch.int32, device=device)
+    return torch.stack([(a >> 2) & 1, (a >> 1) & 1, a & 1], dim=-1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,7 +148,9 @@ class VoxelBlockGrid:
         free = self.slot_keys == vbh.EMPTY_KEY
         free_rank = torch.cumsum(free.to(torch.int64), 0) - 1
         take = free & (free_rank < n_novel)
-        assigned = novel_sorted[torch.clamp(free_rank, 0, self.capacity - 1)]
+        # only ranks below n_novel are taken; the clamp keeps the others in
+        # range of a candidate list shorter than the table
+        assigned = novel_sorted[torch.clamp(free_rank, 0, novel_sorted.shape[0] - 1)]
         new_slot_keys = torch.where(take, assigned, self.slot_keys)
         sorted_keys, slot_of_sorted = vbh.build_sorted_index(new_slot_keys)
         return self.replace(
@@ -273,7 +288,7 @@ class VoxelBlockGrid:
         side = self.block_side()
         dev = self.device
         coords = self.block_coordinates().to(torch.float32)
-        corner_offsets = _cube_offsets((0, 1), torch.float32, dev)
+        corner_offsets = _unit_cube_corners(dev).to(torch.float32)
         corners = (coords[:, None, :] + corner_offsets[None]) * side
         flat = corners.reshape(-1, 3)
         if extrinsics is not None:
@@ -378,11 +393,16 @@ class VoxelBlockGrid:
         valid_p = valid_p & self.occupied_mask()[:, None, None, None]
         return tsdf_p, valid_p
 
-    def extract_triangle_soup(self, max_triangles: int = 200_000, weight_threshold: float = 0.0):
-        """Marching-cubes triangle soup f32[max_triangles, 3, 3] + count."""
+    def extract_triangle_soup(
+        self, max_triangles: int = 200_000, weight_threshold: float = 0.0, method: str = "cubes"
+    ):
+        """Zero-isosurface triangle soup f32[max_triangles, 3, 3] + count, by
+        marching cubes (``method="cubes"``) or marching tetrahedra
+        (``"tetrahedra"``: the same isosurface, a denser soup)."""
         tsdf_p, valid_p = self._stitched_volumes(weight_threshold)
         origins = self.block_coordinates().to(torch.float32) * self.block_side()
-        return marching_cubes(tsdf_p, valid_p, origins, self.voxel_size, max_triangles)
+        kernel = marching_cubes if method == "cubes" else marching_tetrahedra
+        return kernel(tsdf_p, valid_p, origins, self.voxel_size, max_triangles)
 
     def extract_triangle_mesh(
         self, max_triangles: int = 200_000, max_vertices: int | None = None,
@@ -415,6 +435,129 @@ class VoxelBlockGrid:
         vertices = torch.where((last >= 0)[:, None], verts[last.clamp(min=0)], 0.0)
         faces = inv.reshape(max_triangles, 3).to(torch.int32)
         return vertices[:max_vertices], faces, vertex_count, tri_count
+
+
+    # -- TSDF sampling & ray casting --------------------------------------------
+
+    def _trilinear_taps(self, points: torch.Tensor):
+        """The 8 voxels around each world point f32[N, 3] (voxel centers at
+        ``index * voxel_size``): (slots int64[N * 8], local voxel int64[N * 8, 3],
+        found bool[N * 8], trilinear weights f32[N, 8])."""
+        r = self.block_resolution
+        vc = points / self.voxel_size
+        base = torch.floor(vc).to(torch.int32)
+        frac = vc - base
+        offsets = _unit_cube_corners(self.device)
+        idx = base[:, None, :] + offsets[None]  # [N, 8, 3]
+        block = torch.div(idx, r, rounding_mode="floor")
+        local = (idx - block * r).reshape(-1, 3).long()
+        slots, found = self.find_block_slots(vbh.pack_block_keys(block.reshape(-1, 3)))
+        f = frac[:, None, :]
+        o = offsets[None].to(torch.float32)
+        weights = torch.prod(o * f + (1.0 - o) * (1.0 - f), dim=-1)
+        return slots.long(), local, found, weights
+
+    def sample_tsdf(self, points: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Trilinear TSDF sample at world points f32[N, 3] -> (value f32[N],
+        valid bool[N]); valid needs all 8 surrounding voxels observed
+        (weight > 0)."""
+        slots, local, found, weights = self._trilinear_taps(points)
+        t = self.tsdf[slots, local[:, 0], local[:, 1], local[:, 2]].reshape(-1, 8)
+        w = self.weight[slots, local[:, 0], local[:, 1], local[:, 2]]
+        observed = (found & (w > 0)).reshape(-1, 8)
+        return torch.sum(weights * t, dim=-1), torch.all(observed, dim=-1)
+
+    def sample_color(self, points: torch.Tensor) -> torch.Tensor:
+        """Trilinear color sample at world points f32[N, 3] -> f32[N, 3]
+        (voxels of unallocated blocks count as black)."""
+        slots, local, found, weights = self._trilinear_taps(points)
+        c = self.color[slots, local[:, 0], local[:, 1], local[:, 2]].reshape(-1, 8, 3)
+        c = torch.where(found.reshape(-1, 8, 1), c, 0.0)
+        return torch.sum(weights[..., None] * c, dim=1)
+
+    def ray_cast(
+        self,
+        intrinsics,
+        extrinsics,
+        width: int,
+        height: int,
+        depth_min: float = 0.1,
+        with_normals: bool = False,
+        with_color: bool = False,
+    ) -> dict:
+        """TSDF ray marching: a coarse march at half the truncation distance
+        from ``depth_min`` to the volume's ``depth_max`` (a fixed step count)
+        to the first positive -> non-positive crossing between two observed
+        samples, then one secant step between them. ``extrinsics`` maps
+        world to camera (None: the camera is the world frame).
+
+        Returns ``depth`` f32[H, W] (camera-space z, 0 = miss), ``points``
+        f32[H, W, 3] world hits, ``mask`` bool[H, W], and with the options
+        ``normals`` (the normalized TSDF gradient) and ``colors``. Issues no
+        host sync: the march is a Python loop over tensors.
+        """
+        dev = self.device
+        intrinsics = torch.as_tensor(intrinsics, dtype=torch.float32, device=dev)
+        fx, fy = intrinsics[0, 0], intrinsics[1, 1]
+        cx, cy = intrinsics[0, 2], intrinsics[1, 2]
+        v = torch.arange(height, dtype=torch.float32, device=dev)[:, None].expand(height, width)
+        u = torch.arange(width, dtype=torch.float32, device=dev)[None, :].expand(height, width)
+        # z-normalized directions: the march parameter is camera-space depth
+        dirs = torch.stack([(u - cx) / fx, (v - cy) / fy, torch.ones_like(u)], dim=-1).reshape(-1, 3)
+        if extrinsics is not None:
+            cam_to_world = torch.linalg.inv_ex(torch.as_tensor(extrinsics, dtype=torch.float32, device=dev))[0]
+            origin = cam_to_world[:3, 3]
+            dirs = dirs @ cam_to_world[:3, :3].T
+        else:
+            origin = torch.zeros(3, dtype=torch.float32, device=dev)
+
+        # the step and each sample's depth in f32, as the JAX scan computes them
+        step = np.float32(0.5 * self.sdf_truncation_distance)
+        n_steps = int(math.ceil((self.depth_max - depth_min) / (0.5 * self.sdf_truncation_distance))) + 1
+        n_rays = dirs.shape[0]
+        prev_val = torch.zeros(n_rays, dtype=torch.float32, device=dev)
+        prev_valid = torch.zeros(n_rays, dtype=torch.bool, device=dev)
+        hit_t = torch.zeros(n_rays, dtype=torch.float32, device=dev)
+        found = torch.zeros(n_rays, dtype=torch.bool, device=dev)
+        for i in range(n_steps):
+            t = np.float32(depth_min) + np.float32(i) * step
+            val, valid = self.sample_tsdf(origin[None] + float(t) * dirs)
+            crossing = prev_valid & valid & (prev_val > 0.0) & (val <= 0.0) & ~found
+            denom = torch.where(torch.abs(prev_val - val) > 1e-12, prev_val - val, 1.0)
+            t_hit = float(t - step) + float(step) * prev_val / denom
+            hit_t = torch.where(crossing, t_hit, hit_t)
+            found = found | crossing
+            prev_val, prev_valid = val, valid
+        points = origin[None] + hit_t[:, None] * dirs
+        result = {
+            "depth": torch.where(found, hit_t, 0.0).reshape(height, width),
+            "points": points.reshape(height, width, 3),
+            "mask": found.reshape(height, width),
+        }
+        if with_normals:
+            offsets = torch.eye(3, dtype=torch.float32, device=dev) * self.voxel_size
+            g = torch.stack(
+                [self.sample_tsdf(points + offsets[a])[0] - self.sample_tsdf(points - offsets[a])[0] for a in range(3)],
+                dim=-1,
+            )
+            n = g / torch.clamp(torch.linalg.norm(g, dim=-1, keepdim=True), min=1e-12)
+            result["normals"] = torch.where(found[:, None], n, 0.0).reshape(height, width, 3)
+        if with_color:
+            c = self.sample_color(points)
+            result["colors"] = torch.where(found[:, None], c, 0.0).reshape(height, width, 3)
+        return result
+
+    def extract_voxel_values_at(self, voxel_coords: torch.Tensor):
+        """tsdf, weight and found at global integer voxel coordinates
+        int32[N, 3] (zeros where the block is not allocated)."""
+        r = self.block_resolution
+        block = torch.div(voxel_coords, r, rounding_mode="floor")
+        local = (voxel_coords - block * r).long()
+        slots, found = self.find_block_slots(vbh.pack_block_keys(block))
+        slots = slots.long()
+        t = self.tsdf[slots, local[:, 0], local[:, 1], local[:, 2]]
+        w = self.weight[slots, local[:, 0], local[:, 1], local[:, 2]]
+        return torch.where(found, t, 0.0), torch.where(found, w, 0.0), found
 
 
 def extract_mesh_fitter_arrays(volume: VoxelBlockGrid, v_cap: int, t_cap: int, weight_threshold: float):

@@ -1,11 +1,15 @@
-"""Indexed mesh -> pixel-space face vertices + clip mask (kernel B2).
+"""Indexed mesh -> pixel-space face vertices + clip mask (kernel B2), and the
+indexed-mesh rasterizer around it.
 
 Port of the Pallas TPU kernel ``_expand_project``
 (``dynamicfuion_python_tpu/ops/pallas/mesh_expand.py``), whose function is
 ``extract_face_vertices`` of the JAX rasterizer. The TPU kernel worked in
 min-vertex-id face order (an ``ExpansionPlan``) to avoid XLA's per-row gather
-cost; on the card faces keep the caller's order, so the permutation back is
-the identity.
+cost; the CUDA kernel takes faces in any order, and
+:func:`expand_project_faces` keeps the caller's, so the permutation back is
+the identity. :func:`rasterize_indexed` runs the kernel on an
+``ExpansionPlan``'s sorted faces, then the splat rasterizer, and maps the
+fragments' face ids back to the caller's numbering, as the JAX package does.
 
 :func:`expand_project_faces` launches the CUDA kernel (``csrc/mesh_expand.cu``)
 for CUDA tensors and runs :func:`expand_project_faces_plain`, the same math
@@ -21,6 +25,7 @@ import ctypes
 import torch
 
 from dynamicfuion_python_tpu_torch.ops import native
+from dynamicfuion_python_tpu_torch.utils.device import resolve_device
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_int,  # verts, num_verts
@@ -131,3 +136,60 @@ def expand_project_faces(
     else:
         raise ValueError(f"unsupported device {vertices.device}")
     return fv, valid, torch.arange(triangles.shape[0], device=vertices.device)
+
+
+class ExpansionPlan:
+    """The static face order of an indexed mesh for :func:`rasterize_indexed`:
+    ``perm`` sorts the faces by their smallest vertex id (a stable sort), so
+    ``sorted_triangles`` = ``faces[perm]``, and ``sorted_to_original`` maps a
+    sorted face id back to the caller's (it is ``perm``).
+
+    The JAX package's plan also holds window tables (``loc``, ``starts``,
+    ``window_groups``): they exist only to feed the TPU kernel's DMA windows
+    of nearby vertices. The CUDA kernel gathers each face's corners itself,
+    so they are not kept. The order stays because it decides which face
+    wins a depth tie (the lower sorted id).
+    """
+
+    def __init__(self, faces, num_vertices: int, device=None):
+        faces = torch.as_tensor(faces).to(resolve_device(device), torch.int32)
+        self.num_faces = faces.shape[0]
+        self.num_vertices = int(num_vertices)
+        self.perm = torch.sort(torch.amin(faces, dim=1), stable=True).indices
+        self.sorted_to_original = self.perm
+        self.sorted_triangles = faces[self.perm].contiguous()
+
+
+def _remap_fragment_ids(frag_indices: torch.Tensor, s2o: torch.Tensor) -> torch.Tensor:
+    """Sorted face ids -> the caller's face ids (-1 stays -1)."""
+    remapped = s2o[torch.clamp(frag_indices, min=0).long()].to(frag_indices.dtype)
+    return torch.where(frag_indices >= 0, remapped, frag_indices)
+
+
+def rasterize_indexed(
+    vertices: torch.Tensor,
+    plan: ExpansionPlan,
+    intrinsics: torch.Tensor,
+    image_size: tuple[int, int],
+    faces_per_pixel: int = 1,
+    near: float = 0.05,
+    far: float = 10.0,
+    quad_cap: int | None = None,
+    hex_cap: int | None = None,
+    oct_cap: int | None = None,
+    max_large_faces: int = 512,
+):
+    """Indexed-mesh rasterization: kernel B2 on the plan's sorted faces, the
+    splat rasterizer (:func:`..rasterize.rasterize_splat`, perspective-correct,
+    no culling, its default tier caps where a cap is None) in that order,
+    then the fragments' face ids mapped back to the caller's numbering.
+    Returns (Fragments, overflow)."""
+    from dynamicfuion_python_tpu_torch.ops.rasterize import rasterize_splat
+
+    face_vertices, valid, _ = expand_project_faces(vertices, plan.sorted_triangles, intrinsics, near, far)
+    frag, overflow = rasterize_splat(
+        face_vertices, valid, image_size, faces_per_pixel=faces_per_pixel, perspective_correct=True,
+        cull_back_faces=False, quad_cap=quad_cap, hex_cap=hex_cap, oct_cap=oct_cap,
+        max_large_faces=max_large_faces, return_overflow=True,
+    )
+    return frag._replace(face_indices=_remap_fragment_ids(frag.face_indices, plan.sorted_to_original)), overflow

@@ -1,16 +1,19 @@
-"""Triangle rasterization: the naive oracle and the two-phase binned
-rasterizer whose second phase is kernel B1.
+"""Triangle rasterization: the naive oracle, the two-phase binned
+rasterizer whose second phase is kernel B1, and the splat rasterizer.
 
-Port of ``dynamicfuion_python_tpu/ops/rasterize.py`` (``Fragments``,
-``extract_face_vertices``, ``rasterize_naive``, ``rasterize_binned``) with
-phase 2 of ``rasterize_binned`` replacing the Pallas TPU kernel
-``rasterize_tiles_pallas`` (``ops/pallas/rasterize_tiles.py``).
+Port of ``dynamicfuion_python_tpu/ops/rasterize.py``, with phase 2 of
+``rasterize_binned`` at K = 1 replacing the Pallas TPU kernel
+``rasterize_tiles_pallas`` (``ops/pallas/rasterize_tiles.py``). K > 1
+fragments never reached that kernel in the JAX package (XLA's per-tile
+top-k); here they are plain PyTorch on every device, as is the splat path.
 
 Rasterization happens in pixel space: face vertices arrive as (u, v, z) with
 u, v in pixels and z the camera-space depth, and pixel centers sit at integer
-coordinates. Every path keeps, per pixel, the nearest fragment; on equal
-depth the lower face id wins (the rule of the JAX fitter's
-``rasterize_splat``).
+coordinates. Each path keeps, per pixel, the K nearest fragments in
+ascending depth. Ties on equal depth: at K = 1 the lower face id wins on
+every path (the rule of the JAX fitter's ``rasterize_splat``); at K > 1 the
+naive and binned paths keep the JAX package's ``top_k`` order (the lower
+face id, the earlier bin entry), and the splat path the lower face id.
 """
 
 from __future__ import annotations
@@ -53,6 +56,42 @@ def extract_face_vertices(
     return fv, valid
 
 
+def project_face_soup(
+    face_soup: torch.Tensor,
+    intrinsics: torch.Tensor,
+    near: float = 0.05,
+    far: float = 10.0,
+    valid: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Camera-space triangle soup f32[F, 3, 3] -> pixel-space face vertices
+    + clip mask (the clip rule of :func:`extract_face_vertices`), with no
+    index gather."""
+    fx, fy = intrinsics[0, 0], intrinsics[1, 1]
+    cx, cy = intrinsics[0, 2], intrinsics[1, 2]
+    x, y, z = face_soup[..., 0], face_soup[..., 1], face_soup[..., 2]
+    ok = torch.all((z > near) & (z < far), dim=-1)
+    if valid is not None:
+        ok = ok & valid
+    safe_z = torch.where(torch.abs(z) > 1e-9, z, 1e-9)
+    return torch.stack([x / safe_z * fx + cx, y / safe_z * fy + cy, z], dim=-1), ok
+
+
+def pixel_to_ndc(face_vertices_pix: torch.Tensor, image_size) -> torch.Tensor:
+    """Pixel-space (u, v, z) -> PyTorch3D-style NDC (+x left, +y up, the
+    short side spans [-1, 1])."""
+    h, w = image_size
+    s = min(h, w)
+    u, v, z = (face_vertices_pix[..., i] for i in range(3))
+    return torch.stack([-(2.0 * u - w) / s, -(2.0 * v - h) / s, z], dim=-1)
+
+
+def ndc_to_pixel(face_vertices_ndc: torch.Tensor, image_size) -> torch.Tensor:
+    h, w = image_size
+    s = min(h, w)
+    x, y, z = (face_vertices_ndc[..., i] for i in range(3))
+    return torch.stack([(w - s * x) / 2.0, (h - s * y) / 2.0, z], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # per-pixel / per-face math (plain PyTorch; the CUDA kernel repeats it
 # operation by operation)
@@ -74,11 +113,14 @@ def _point_segment_d2(px, py, ax, ay, bx, by):
 
 def _fragment_math(
     px, py, cols, blur_radius: float, perspective_correct: bool,
-    clip_barycentrics: bool, cull_back_faces: bool,
+    clip_barycentrics: bool, cull_back_faces: bool, divide_by_depth: bool = False,
 ):
     """Evaluate faces at pixels (broadcasting). ``cols`` = the 9 face columns
     (ax, ay, az, bx, by, bz, cx, cy, cz). Returns (hit, depth, (b0, b1, b2),
-    signed_d2)."""
+    signed_d2). The perspective correction multiplies by each corner's
+    1 / z, as the JAX package's tiled and naive paths do; with
+    ``divide_by_depth`` it divides by z, as its splat path does (the two
+    round differently)."""
     ax, ay, az, bx, by, bz, cx, cy, cz = cols
     area = _edge_fn(cx, cy, ax, ay, bx, by)
     e0 = _edge_fn(px, py, bx, by, cx, cy)
@@ -103,9 +145,11 @@ def _fragment_math(
     signed_d2 = torch.where(inside, -d2, d2)
     hit = orientation_ok & (inside | (d2 <= blur_radius * blur_radius))
     if perspective_correct:
-        pa = w0 * (1.0 / torch.clamp(az, min=1e-9))
-        pb = w1 * (1.0 / torch.clamp(bz, min=1e-9))
-        pc = w2 * (1.0 / torch.clamp(cz, min=1e-9))
+        corners = ((w0, az), (w1, bz), (w2, cz))
+        if divide_by_depth:
+            pa, pb, pc = (wi / torch.clamp(z, min=1e-9) for wi, z in corners)
+        else:
+            pa, pb, pc = (wi * (1.0 / torch.clamp(z, min=1e-9)) for wi, z in corners)
         denom = torch.clamp(pa + pb + pc, min=1e-12)
         w0, w1, w2 = pa / denom, pb / denom, pc / denom
     if clip_barycentrics:
@@ -144,6 +188,67 @@ def _nearest(hit, depth, bary, signed_d2, face_ids):
     )
 
 
+def _top_k_fragments(hit, depth, bary, signed_d2, face_ids, k: int):
+    """Per row, the K nearest hits along the last axis, ascending; equal
+    depths keep their order along the axis (the order ``jax.lax.top_k``
+    gives), by a stable sort. ``face_ids`` broadcasts against ``hit``;
+    ``bary`` is a 3-tuple. Returns (face int32, depth, bary [..., K, 3],
+    signed_d2) with the empty convention applied."""
+    key = torch.where(hit, depth, BG_DEPTH)
+    k = min(k, key.shape[-1])
+    depths, idx = torch.sort(key, dim=-1, stable=True)
+    depths, idx = depths[..., :k], idx[..., :k]
+
+    def take(a):
+        return torch.gather(torch.broadcast_to(a, key.shape), -1, idx)
+
+    empty = depths >= BG_DEPTH
+    faces = torch.where(empty, -1, take(face_ids)).to(torch.int32)
+    sel_bary = torch.stack([take(b) for b in bary], dim=-1)
+    return (
+        faces,
+        depths,
+        torch.where(empty[..., None], 0.0, sel_bary),
+        torch.where(empty, 0.0, take(signed_d2)),
+    )
+
+
+def _pad_k(frag: Fragments, k: int) -> Fragments:
+    """Pad the fragment axis with empty fragments up to ``k``."""
+    have = frag.face_indices.shape[-1]
+    if have == k:
+        return frag
+    h, w = frag.face_indices.shape[:2]
+    dev = frag.depths.device
+    pad = k - have
+    return Fragments(
+        face_indices=torch.cat(
+            [frag.face_indices, torch.full((h, w, pad), -1, dtype=torch.int32, device=dev)], -1
+        ),
+        depths=torch.cat([frag.depths, torch.full((h, w, pad), BG_DEPTH, device=dev)], -1),
+        barycentrics=torch.cat([frag.barycentrics, torch.zeros((h, w, pad, 3), device=dev)], -2),
+        distances=torch.cat([frag.distances, torch.zeros((h, w, pad), device=dev)], -1),
+    )
+
+
+def _merge_fragments(a: Fragments, b: Fragments, k: int) -> Fragments:
+    """Merge two K-fragment buffers per pixel, keeping the K nearest; on
+    equal depth ``a``'s fragments come first, then each buffer's order."""
+    depths, idx = torch.sort(torch.cat([a.depths, b.depths], -1), dim=-1, stable=True)
+    depths, idx = depths[..., :k], idx[..., :k]
+
+    def take(x, y):
+        return torch.gather(torch.cat([x, y], -1), -1, idx)
+
+    bary = torch.cat([a.barycentrics, b.barycentrics], -2)
+    return Fragments(
+        face_indices=take(a.face_indices, b.face_indices),
+        depths=depths,
+        barycentrics=torch.gather(bary, -2, idx[..., None].expand(*idx.shape, 3)),
+        distances=take(a.distances, b.distances),
+    )
+
+
 # ---------------------------------------------------------------------------
 # naive rasterizer (oracle)
 # ---------------------------------------------------------------------------
@@ -161,12 +266,11 @@ def rasterize_naive(
     row_chunk: int = 16,
 ) -> Fragments:
     """Brute-force all-pixels x all-faces rasterization (correctness oracle),
-    nearest fragment per pixel."""
-    if faces_per_pixel != 1:
-        raise NotImplementedError("K > 1 fragments are not ported yet (ROADMAP A10)")
+    the K nearest fragments per pixel."""
     h, w = image_size
     dev = face_vertices.device
     f = face_vertices.shape[0]
+    k = min(faces_per_pixel, f)
     fv = torch.where(valid_faces[:, None, None], face_vertices, -1e9).reshape(f, 9)
     cols = tuple(fv[None, :, q] for q in range(9))
     face_ids = torch.arange(f, dtype=torch.int64, device=dev)[None]
@@ -178,14 +282,19 @@ def rasterize_naive(
         hit, depth, bary, d2 = _fragment_math(
             px, py, cols, blur_radius, perspective_correct, clip_barycentrics, cull_back_faces
         )
-        outs.append(_nearest(hit, depth, bary, d2, face_ids))
+        if faces_per_pixel == 1:
+            face, depth, bary, d2 = _nearest(hit, depth, bary, d2, face_ids)
+            outs.append((face[:, None], depth[:, None], bary[:, None], d2[:, None]))
+        else:
+            outs.append(_top_k_fragments(hit, depth, bary, d2, face_ids, k))
     face, depth, bary, dist = (torch.cat([o[i] for o in outs]) for i in range(4))
-    return Fragments(
-        face_indices=face.reshape(h, w, 1),
-        depths=depth.reshape(h, w, 1),
-        barycentrics=bary.reshape(h, w, 1, 3),
-        distances=dist.reshape(h, w, 1),
+    frag = Fragments(
+        face_indices=face.reshape(h, w, k),
+        depths=depth.reshape(h, w, k),
+        barycentrics=bary.reshape(h, w, k, 3),
+        distances=dist.reshape(h, w, k),
     )
+    return _pad_k(frag, faces_per_pixel)
 
 
 # ---------------------------------------------------------------------------
@@ -277,6 +386,54 @@ def rasterize_tiles_plain(
         _detile(bary, th, tw, tile_size, (3,))[:h, :w].contiguous(),
         _detile(dist, th, tw, tile_size)[:h, :w].contiguous(),
     )
+
+
+def rasterize_tiles_top_k(
+    faces: torch.Tensor,
+    table: torch.Tensor,
+    image_size: tuple[int, int],
+    tile_size: int,
+    faces_per_pixel: int,
+    blur_radius: float = 0.0,
+    perspective_correct: bool = True,
+    clip_barycentrics: bool = False,
+    cull_back_faces: bool = False,
+) -> Fragments:
+    """Phase 2 of the binned rasterizer at K > 1, plain PyTorch on every
+    device (the JAX package's per-tile top-k, which never reached its TPU
+    kernel): per pixel, the ``faces_per_pixel`` nearest fragments among its
+    tile's bin, equal depths in bin order. Tiles go in chunks that keep the
+    [tiles, pixels, bin] intermediates at 2^21 entries each."""
+    h, w = image_size
+    tw = _tiles_w(image_size, tile_size, table)
+    t_count, cap = table.shape
+    th = t_count // tw
+    k = min(faces_per_pixel, cap)
+    dev = faces.device
+    p = tile_size * tile_size
+    lin = torch.arange(p, device=dev)
+    chunk = max(1, (1 << 21) // max(1, p * cap))
+    out = []
+    for s in range(0, t_count, chunk):
+        tiles = torch.arange(s, min(t_count, s + chunk), device=dev)
+        px = ((tiles % tw) * tile_size)[:, None] + (lin % tile_size)[None]
+        py = ((tiles // tw) * tile_size)[:, None] + (lin // tile_size)[None]
+        ids = table[s : s + chunk].long()
+        fv = faces[ids.clamp(min=0)]  # [tc, K, 9]
+        cols = tuple(fv[:, None, :, q] for q in range(9))
+        hit, depth, bary, d2 = _fragment_math(
+            px.to(torch.float32)[..., None], py.to(torch.float32)[..., None], cols,
+            blur_radius, perspective_correct, clip_barycentrics, cull_back_faces,
+        )
+        hit = hit & (ids >= 0)[:, None, :]
+        out.append(_top_k_fragments(hit, depth, bary, d2, ids[:, None, :], k))
+    face, depth, bary, dist = (torch.cat([o[i] for o in out]) for i in range(4))
+    return _pad_k(Fragments(
+        face_indices=_detile(face, th, tw, tile_size, (k,))[:h, :w].contiguous(),
+        depths=_detile(depth, th, tw, tile_size, (k,))[:h, :w].contiguous(),
+        barycentrics=_detile(bary, th, tw, tile_size, (k, 3))[:h, :w].contiguous(),
+        distances=_detile(dist, th, tw, tile_size, (k,))[:h, :w].contiguous(),
+    ), faces_per_pixel)
 
 
 def rasterize_tiles_cuda(
@@ -561,37 +718,250 @@ def rasterize_binned(
     return_overflow: bool = False,
 ):
     """Two-phase tiled rasterization: phase 1 (:func:`bin_faces`) in plain
-    PyTorch, phase 2 through kernel B1 (:func:`rasterize_tiles`).
+    PyTorch, phase 2 through kernel B1 (:func:`rasterize_tiles`) at K = 1 and
+    through :func:`rasterize_tiles_top_k` above.
 
     With ``return_overflow`` the result is ``(Fragments, overflow)`` where
     ``overflow`` = {"dropped_large_faces", "dropped_bin_entries"} (tensors);
     non-zero counts mean a static capacity was exceeded.
     """
-    if faces_per_pixel != 1:
-        raise NotImplementedError("K > 1 fragments are not ported yet (ROADMAP A10)")
     f = face_vertices.shape[0]
     bins = bin_faces(
         face_vertices, valid_faces, image_size, blur_radius, tile_size,
         max_faces_per_bin, small_span, max_large_faces,
     )
-    # bins list only on-screen faces, which are valid ones: the kernel reads
+    # bins list only on-screen faces, which are valid ones: phase 2 reads
     # the faces as they are, with no masked copy
-    face, depth, bary, dist = rasterize_tiles(
-        face_vertices.reshape(f, 9).contiguous(), bins.table, image_size, tile_size,
+    faces9 = face_vertices.reshape(f, 9).contiguous()
+    options = dict(
         blur_radius=blur_radius,
         perspective_correct=perspective_correct,
         clip_barycentrics=clip_barycentrics,
         cull_back_faces=cull_back_faces,
     )
-    frag = Fragments(
-        face_indices=face[..., None],
-        depths=depth[..., None],
-        barycentrics=bary[:, :, None, :],
-        distances=dist[..., None],
-    )
+    if faces_per_pixel == 1:
+        face, depth, bary, dist = rasterize_tiles(faces9, bins.table, image_size, tile_size, **options)
+        frag = Fragments(
+            face_indices=face[..., None],
+            depths=depth[..., None],
+            barycentrics=bary[:, :, None, :],
+            distances=dist[..., None],
+        )
+    else:
+        frag = rasterize_tiles_top_k(faces9, bins.table, image_size, tile_size, faces_per_pixel, **options)
     if not return_overflow:
         return frag
     return frag, {
         "dropped_large_faces": bins.dropped_large_faces,
         "dropped_bin_entries": bins.dropped_bin_entries,
     }
+
+
+# ---------------------------------------------------------------------------
+# splat rasterizer (faces a few pixels across)
+# ---------------------------------------------------------------------------
+#
+# Each face is evaluated directly at the few pixel centers inside its box
+# (widened by the blur radius), in tiers of 1, 2x2, 4x4 and 8x8 candidate
+# pixels; the (pixel, depth, face) entries of all tiers, plus one sentinel
+# per pixel, sort lexicographically, and pixel p's K nearest fragments sit
+# right after its sentinel. Faces wider than 8 px (+2 blur) go through
+# rasterize_naive on a capped subset and merge by depth. The JAX package's
+# three-key sort becomes two stable sorts here: by face id, then by one
+# int64 key (pixel << 32 | depth bits + 2^31), so equal depths resolve to
+# the lower face id.
+
+
+def _eval_columns(
+    px, py, cols, blur_radius: float, perspective_correct: bool,
+    clip_barycentrics: bool, cull_back_faces: bool,
+):
+    """Fragment math on flat columns, as the JAX splat path rounds it: px /
+    py f32[N] pixel centers, cols the 9-tuple (ax, ay, az, ..., cz) of f32[N].
+    Returns (hit bool[N], depth f32[N], bary f32[N, 3], signed_d2 f32[N])."""
+    hit, depth, bary, d2 = _fragment_math(
+        px, py, cols, blur_radius, perspective_correct, clip_barycentrics, cull_back_faces,
+        divide_by_depth=True,
+    )
+    return hit, depth, torch.stack(bary, dim=-1), d2
+
+
+def _compact_indices(mask: torch.Tensor, cap: int):
+    """Indices of the first ``cap`` true entries (ascending), with no host
+    sync. Returns (idx int64[min(cap, n)], 0 where absent; has; dropped =
+    max(count - cap, 0)), as the JAX helper's slice of its sort."""
+    n = mask.shape[0]
+    idx, count = compact_mask_indices(mask, min(cap, n), fill_value=n)
+    has = idx < n
+    return torch.where(has, idx, 0), has, torch.clamp(count - cap, min=0)
+
+
+_INT32_MIN = -(2**31)
+
+
+def rasterize_splat(
+    face_vertices: torch.Tensor,
+    valid_faces: torch.Tensor,
+    image_size: tuple[int, int],
+    faces_per_pixel: int = 1,
+    blur_radius: float = 0.0,
+    perspective_correct: bool = True,
+    clip_barycentrics: bool = False,
+    cull_back_faces: bool = False,
+    quad_cap: int | None = None,
+    hex_cap: int | None = None,
+    oct_cap: int | None = None,
+    max_large_faces: int = 512,
+    return_overflow: bool = False,
+):
+    """Splat-path rasterization (see the note above), same contract as
+    :func:`rasterize_naive`.
+
+    ``quad_cap`` / ``hex_cap`` / ``oct_cap`` bound the 2x2-, 4x4- and
+    8x8-candidate tiers (defaults F/4, F/16, F/64, floored at 4096 / 4096 /
+    2048); ``max_large_faces`` bounds the faces wider than 8 px (+2 blur)
+    that go through :func:`rasterize_naive` (0: they are dropped). Overflow
+    past the caps is reported as in the JAX package: tier drops under
+    ``dropped_bin_entries``, large-face drops under ``dropped_large_faces``.
+    The large-face pass runs only when such a face exists, which costs one
+    host sync.
+    """
+    h, w = image_size
+    hw = h * w
+    dev = face_vertices.device
+    f = face_vertices.shape[0]
+    k = faces_per_pixel
+    r = float(blur_radius)
+    quad_cap = min(min(f, max(4096, f // 4)) if quad_cap is None else quad_cap, f)
+    hex_cap = min(min(f, max(4096, f // 16)) if hex_cap is None else hex_cap, f)
+    oct_cap = min(min(f, max(2048, f // 64)) if oct_cap is None else oct_cap, f)
+    max_large_faces = min(max_large_faces, f)
+    options = (blur_radius, perspective_correct, clip_barycentrics, cull_back_faces)
+
+    fv9 = face_vertices.reshape(f, 9)
+    cols_all = tuple(fv9[:, i] for i in range(9))
+
+    def window_origin(cols):
+        u_min = torch.minimum(torch.minimum(cols[0], cols[3]), cols[6])
+        v_min = torch.minimum(torch.minimum(cols[1], cols[4]), cols[7])
+        # the first integer pixel center at or right of / below the box
+        return torch.ceil(u_min - r).to(torch.int64), torch.ceil(v_min - r).to(torch.int64), u_min, v_min
+
+    cu0, cv0, u_min, v_min = window_origin(cols_all)
+    u_max = torch.maximum(torch.maximum(cols_all[0], cols_all[3]), cols_all[6])
+    v_max = torch.maximum(torch.maximum(cols_all[1], cols_all[4]), cols_all[7])
+    on_screen = valid_faces & (u_max >= -r) & (u_min < w - 1 + r) & (v_max >= -r) & (v_min < h - 1 + r)
+    span_u = u_max - u_min + 2 * r
+    span_v = v_max - v_min + 2 * r
+    tier1 = on_screen & (span_u < 1) & (span_v < 1)
+    tier2 = on_screen & ~tier1 & (span_u < 2) & (span_v < 2)
+    tier4 = on_screen & ~tier1 & ~tier2 & (span_u < 4) & (span_v < 4)
+    tier8 = on_screen & ~tier1 & ~tier2 & ~tier4 & (span_u < 8) & (span_v < 8)
+    large = on_screen & ~tier1 & ~tier2 & ~tier4 & ~tier8
+    face_ids = torch.arange(f, device=dev)
+
+    def emit(cols, ids, cu, cv, active, n_cand):
+        """The faces at an s x s window of pixel centers (n_cand = s^2): flat
+        (pixel, depth bits, face id) columns, pixel hw + 1 where no hit."""
+        s = int(round(n_cand**0.5))
+        du = torch.arange(n_cand, device=dev)
+        pu = cu[:, None] + (du % s)[None, :]
+        pv = cv[:, None] + (du // s)[None, :]
+        okp = active[:, None] & (pu >= 0) & (pu < w) & (pv >= 0) & (pv < h)
+        hit, depth, _, _ = _eval_columns(
+            pu.to(torch.float32), pv.to(torch.float32), tuple(c[:, None] for c in cols), *options
+        )
+        ok = okp & hit
+        pix = torch.where(ok, pv * w + pu, hw + 1)
+        dbits = torch.where(ok, torch.clamp(depth, min=0.0), 0.0).view(torch.int32)
+        fid = torch.broadcast_to(ids[:, None], pix.shape)
+        return pix.reshape(-1), dbits.reshape(-1), fid.reshape(-1)
+
+    entries = [emit(cols_all, face_ids, cu0, cv0, tier1, 1)]
+
+    # tiers 2 / 4 / 8 and the large faces: one compaction sort classifies all
+    # four (key = class * F + face id; each class comes out contiguous and
+    # ascending)
+    n2, n4, n8, nl = (torch.sum(t) for t in (tier2, tier4, tier8, large))
+    cls_key = torch.where(
+        tier2, face_ids,
+        torch.where(tier4, f + face_ids, torch.where(tier8, 2 * f + face_ids, torch.where(large, 3 * f + face_ids, 4 * f))),
+    )
+    cls_sorted = torch.sort(cls_key).values
+
+    def tier_slice(start, cap, base):
+        # a window of ``cap`` sorted entries from ``start``, clamped to the
+        # array's end as jax.lax.dynamic_slice clamps it
+        at = torch.clamp(start, max=f - cap) + torch.arange(cap, device=dev)
+        ent = cls_sorted[at]
+        has = (ent >= base) & (ent < base + f)
+        return torch.where(has, ent - base, 0), has
+
+    def tier_entries(idx, has, n_cand):
+        cols = tuple(fv9[idx][:, i] for i in range(9))
+        cu, cv, _, _ = window_origin(cols)
+        return emit(cols, idx, cu, cv, has, n_cand)
+
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    q_idx, q_has = tier_slice(zero, quad_cap, 0)
+    x_idx, x_has = tier_slice(n2, hex_cap, f)
+    o_idx, o_has = tier_slice(n2 + n4, oct_cap, 2 * f)
+    entries += [tier_entries(q_idx, q_has, 4), tier_entries(x_idx, x_has, 16), tier_entries(o_idx, o_has, 64)]
+    tier_drops = (
+        torch.clamp(n2 - quad_cap, min=0) + torch.clamp(n4 - hex_cap, min=0) + torch.clamp(n8 - oct_cap, min=0)
+    )
+
+    # one sentinel per pixel (and a tail guard at pixel hw) with the least
+    # depth key heads its pixel's segment
+    sentinel_pix = torch.arange(hw + 1, device=dev)
+    entries.append((
+        sentinel_pix,
+        torch.full((hw + 1,), _INT32_MIN, dtype=torch.int32, device=dev),
+        torch.full((hw + 1,), -1, dtype=torch.int64, device=dev),
+    ))
+    pix_all, dbits_all, face_all = (torch.cat([e[i] for e in entries]) for i in range(3))
+    by_face = torch.sort(face_all, stable=True).indices
+    key = (pix_all[by_face] << 32) | (dbits_all[by_face].to(torch.int64) - _INT32_MIN)
+    order = torch.sort(key, stable=True).indices
+    sorted_face = face_all[by_face[order]]
+    n_pairs = sorted_face.shape[0]
+    # the sentinels' positions are ascending: one single-key sort finds them
+    positions = torch.arange(n_pairs, device=dev)
+    sent_pos = torch.sort(torch.where(sorted_face == -1, positions, n_pairs)).values[: hw + 1]
+    take = sent_pos[:hw, None] + 1 + torch.arange(k, device=dev)[None]
+    within = take < sent_pos[1:, None]
+    sel_face = torch.where(within, sorted_face[torch.clamp(take, max=n_pairs - 1)], -1)  # [HW, K]
+
+    # depth, barycentrics and distance re-evaluated at the winners
+    win_rows = fv9[torch.clamp(sel_face, min=0).reshape(-1)]
+    pix_lin = torch.arange(hw, device=dev)
+    win_px = torch.repeat_interleave(pix_lin % w, k).to(torch.float32)
+    win_py = torch.repeat_interleave(pix_lin // w, k).to(torch.float32)
+    _, win_depth, win_bary, win_d2 = _eval_columns(
+        win_px, win_py, tuple(win_rows[:, i] for i in range(9)), *options
+    )
+    have = sel_face.reshape(-1) >= 0
+    frag = Fragments(
+        face_indices=sel_face.to(torch.int32).reshape(h, w, k),
+        depths=torch.where(have, torch.clamp(win_depth, min=0.0), BG_DEPTH).reshape(h, w, k),
+        barycentrics=torch.where(have[:, None], win_bary, 0.0).reshape(h, w, k, 3),
+        distances=torch.where(have, win_d2, 0.0).reshape(h, w, k),
+    )
+
+    if max_large_faces > 0:
+        l_idx, l_has = tier_slice(n2 + n4 + n8, max_large_faces, 3 * f)
+        large_drops = torch.clamp(nl - max_large_faces, min=0)
+        if bool(nl > 0):
+            lfrag = rasterize_naive(
+                face_vertices[l_idx], l_has, image_size, faces_per_pixel=k,
+                blur_radius=blur_radius, perspective_correct=perspective_correct,
+                clip_barycentrics=clip_barycentrics, cull_back_faces=cull_back_faces,
+            )
+            lfaces = lfrag.face_indices.long()
+            lfaces = torch.where(lfaces >= 0, l_idx[torch.clamp(lfaces, min=0)], -1).to(torch.int32)
+            frag = _merge_fragments(frag, lfrag._replace(face_indices=lfaces), k)
+    else:
+        large_drops = nl
+    if not return_overflow:
+        return frag
+    return frag, {"dropped_large_faces": large_drops, "dropped_bin_entries": tier_drops}

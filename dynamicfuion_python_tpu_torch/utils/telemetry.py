@@ -2,15 +2,18 @@
 metrics (port of ``dynamicfuion_python_tpu/utils/telemetry.py``).
 
 A run writes into ``<telemetry.output_directory>/<run name>/``: canonical and
-warped triangle soups per frame, optional per-iteration GN states and
-neural-prior correspondence sets, and ``metrics.json`` at the end. The rendered warped mesh needs the renderer,
-which is not ported yet (ROADMAP A10): turning it on raises.
+warped triangle soups per frame, optional per-iteration GN states,
+neural-prior correspondence sets and renders of the warped mesh (8-bit RGB
+color and 16-bit depth PNGs, written by :func:`write_png` with ``zlib``
+alone: Pillow is not needed), and ``metrics.json`` at the end.
 """
 
 from __future__ import annotations
 
 import json
+import struct
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -67,6 +70,55 @@ def _write_ply(path, verts, faces):
         f.write(face_block.tobytes())
 
 
+def write_png(path: str | Path, image) -> None:
+    """Write uint8 [H, W, 3] (RGB), uint8 [H, W] or uint16 [H, W] (grey) as a
+    PNG: one IDAT chunk, every row with filter 0, default zlib level."""
+    a = np.asarray(image)
+    if a.dtype == np.uint8 and a.ndim == 3 and a.shape[2] == 3:
+        bit_depth, color_type = 8, 2
+    elif a.dtype in (np.uint8, np.uint16) and a.ndim == 2:
+        bit_depth, color_type = 8 * a.dtype.itemsize, 0
+    else:
+        raise ValueError(f"write_png takes uint8 [H, W, 3] or uint8 / uint16 [H, W], got {a.dtype}{list(a.shape)}")
+    h, w = a.shape[:2]
+    rows = np.ascontiguousarray(a.astype(a.dtype.newbyteorder(">"))).view(np.uint8).reshape(h, -1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
+
+    def chunk(tag: bytes, payload: bytes) -> bytes:
+        return struct.pack(">I", len(payload)) + tag + payload + struct.pack(">I", zlib.crc32(tag + payload))
+
+    header = struct.pack(">IIBBBBB", w, h, bit_depth, color_type, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header) + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def read_png(path: str | Path) -> np.ndarray:
+    """Read a PNG as :func:`write_png` writes it (8-bit RGB, 8- or 16-bit
+    grey, filter 0 on every row); raises on anything else."""
+    data = Path(path).read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG")
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos : pos + 4])
+        tag, payload = data[pos + 4 : pos + 8], data[pos + 8 : pos + 8 + length]
+        if struct.unpack(">I", data[pos + 8 + length : pos + 12 + length])[0] != zlib.crc32(tag + payload):
+            raise ValueError(f"{path}: bad CRC in {tag!r}")
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", payload)
+        elif tag == b"IDAT":
+            idat += payload
+        pos += 12 + length
+    w, h, bit_depth, color_type = header[:4]
+    channels = {0: 1, 2: 3}[color_type]
+    dtype = np.dtype(">u2") if bit_depth == 16 else np.dtype(np.uint8)
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * channels * dtype.itemsize)
+    if rows[:, 0].any():
+        raise ValueError(f"{path}: a row filter other than 0")
+    image = rows[:, 1:].copy().view(dtype).astype(dtype.newbyteorder("="))
+    return image.reshape(h, w, channels) if channels == 3 else image.reshape(h, w)
+
+
 def read_ply(path: str | Path) -> tuple[np.ndarray, np.ndarray]:
     """Minimal reader for the files this module writes."""
     with open(path, "rb") as f:
@@ -87,11 +139,6 @@ class TelemetryRecorder:
     """Per-run output directory with toggled recorders."""
 
     def __init__(self, config, run_name: str | None = None):
-        if config.record_rendered_warped_mesh:
-            raise NotImplementedError(
-                "telemetry.record_rendered_warped_mesh needs the mesh renderer, which is "
-                "not ported yet (ROADMAP A10)"
-            )
         self.config = config
         stamp = run_name or time.strftime("%y-%m-%d-%H-%M-%S")
         self.run_dir = Path(config.output_directory) / stamp
@@ -150,6 +197,16 @@ class TelemetryRecorder:
             arrays["mask_prediction"] = _np(mask_prediction).astype(np.float32)
         if arrays:
             np.savez_compressed(self.run_dir / f"{frame_index:06d}_correspondences.npz", **arrays)
+
+    def record_rendered_warped_mesh(self, frame_index: int, color, depth):
+        """The rendered warped mesh: color f32[H, W, 3] in [0, 1] as an 8-bit
+        RGB PNG, depth f32[H, W] in meters as a 16-bit PNG in millimeters."""
+        if not self.config.record_rendered_warped_mesh:
+            return
+        rgb = np.clip(_np(color) * 255.0, 0, 255).astype(np.uint8)
+        write_png(self.run_dir / f"{frame_index:06d}_rendered_color.png", rgb)
+        d16 = np.clip(_np(depth) * 1000.0, 0, 65535).astype(np.uint16)
+        write_png(self.run_dir / f"{frame_index:06d}_rendered_depth.png", d16)
 
     def record_frame(self, frame_index: int, **metrics):
         self.frame_metrics.append({"frame": frame_index, **metrics})

@@ -1,6 +1,6 @@
 """Rules of the PyTorch port: it imports nothing of JAX or of the JAX
-package, and its entry points refuse to run without a card unless the
-caller asks for the CPU."""
+package, its entry points refuse to run without a card unless the caller
+asks for the CPU, and what is not ported yet is refused by name."""
 
 import ast
 import subprocess
@@ -47,6 +47,10 @@ def test_entry_points_need_a_card_unless_asked(monkeypatch):
     from dynamicfuion_python_tpu_torch.apps.fusion_pipeline import main, run_fusion
     from dynamicfuion_python_tpu_torch.data.frame_sequence import SyntheticBendingPlaneSequence
 
+    from dynamicfuion_python_tpu_torch.apps import visualizer
+    from dynamicfuion_python_tpu_torch.models.renderer import MeshRenderer
+    from dynamicfuion_python_tpu_torch.ops.mesh_expand import ExpansionPlan
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     params = Parameters()  # the default configuration, rigid odometry on
     k = np.eye(3, dtype=np.float32)
@@ -66,13 +70,21 @@ def test_entry_points_need_a_card_unless_asked(monkeypatch):
         warp_field_from_numpy(warp_field_to_numpy(field))
     assert warp_field_from_numpy(warp_field_to_numpy(field), device="cpu").device.type == "cpu"
     assert FusionPipeline(params, k, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MeshRenderer((8, 8), k)
+    assert MeshRenderer((8, 8), k, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        visualizer.main(["--run", "."])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ExpansionPlan(np.zeros((1, 3), np.int32), 3)
 
 
 def test_unported_options_are_refused(tmp_path):
-    from dynamicfuion_python_tpu_torch.apps.fusion_pipeline import FusionPipeline, _load_prior_network, run_fusion
+    from dynamicfuion_python_tpu_torch.apps.fusion_pipeline import FusionPipeline, _load_prior_network
     from dynamicfuion_python_tpu_torch.data.frame_sequence import SyntheticBendingPlaneSequence
     from dynamicfuion_python_tpu_torch.settings import Parameters
     from dynamicfuion_python_tpu_torch.utils.config import apply_overrides
+    from dynamicfuion_python_tpu_torch.utils.telemetry import TelemetryRecorder
 
     k = np.eye(3, dtype=np.float32)
     # the neural prior, the tracking spans and the other data terms run now
@@ -80,22 +92,33 @@ def test_unported_options_are_refused(tmp_path):
                      "fusion.tracking_span_mode=KEYFRAME_TO_CURRENT", "alignment.data_term_impl=fast",
                      "alignment.data_term_impl=autodiff", "fusion.pixel_anchor_computation_mode=SHORTEST_PATH"):
         FusionPipeline(apply_overrides(Parameters(), [override]), k, device="cpu")
-    for mode in ("RENDERED_ONLY", "RENDERED_WITH_PREVIOUS_FRAME_OVERLAY"):
-        with pytest.raises(NotImplementedError, match="A10"):
-            FusionPipeline(apply_overrides(Parameters(), [
-                "fusion.use_neural_prior=true", f"fusion.source_image_mode={mode}",
-            ]), k, device="cpu")
     with pytest.raises(NotImplementedError, match="msgpack"):
         _load_prior_network(str(tmp_path / "deform_net.msgpack"), 4, "cpu")
     pipe = FusionPipeline(Parameters(), k, device="cpu")  # the default configuration runs
     with pytest.raises(NotImplementedError, match="A17"):
         pipe.enable_spmd(None)
-    params = apply_overrides(Parameters(), [
+    # so do the rendered source-image modes (the prior's source is the
+    # rendered model) and the rendered-mesh recorder, built as run_fusion
+    # builds it, on test_torch_entry_point.py's small bending plane
+    small = ["tsdf.voxel_size=0.01", "tsdf.sdf_truncation_distance=0.04", "tsdf.initial_block_count=512",
+             "graph.node_coverage=0.12", "graph.layer_count=2", "graph.erosion_num_iterations=1",
+             "alignment.max_iteration_count=2", "fusion.far_clip_distance=2.0", "telemetry.print_runtime=false"]
+    params = apply_overrides(Parameters(), small + [
+        "fusion.use_neural_prior=true", "fusion.source_image_mode=RENDERED_WITH_PREVIOUS_FRAME_OVERLAY",
         "telemetry.record_rendered_warped_mesh=true", f"telemetry.output_directory={tmp_path}",
     ])
-    with pytest.raises(NotImplementedError, match="A10"):
-        run_fusion(SyntheticBendingPlaneSequence(frame_count=2, image_size=(16, 16)), params, device="cpu")
-
+    seq = SyntheticBendingPlaneSequence(frame_count=2, image_size=(64, 96), bend_per_frame=0.02, focal=120.0)
+    f0, f1 = seq
+    pipe = FusionPipeline(params, seq.intrinsics, device="cpu")
+    pipe.telemetry = TelemetryRecorder(params.telemetry, "rendered")
+    pipe.initialize(f0.depth, f0.color)
+    pipe.process_frame(f1.depth, f1.color, prior_flow=np.zeros((64, 96, 2), np.float32))
+    assert {p.name for p in (tmp_path / "rendered").glob("*.png")} == {
+        "000001_rendered_color.png", "000001_rendered_depth.png"}
+    for mode in ("RENDERED_ONLY", "RENDERED_WITH_PREVIOUS_FRAME_OVERLAY"):
+        pipe.params = apply_overrides(params, [f"fusion.source_image_mode={mode}"])
+        source = pipe._prior_source_rgbxyz()
+        assert source.shape == (64, 96, 6) and bool((source[..., 5] > 0).any())
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
     if torch.cuda.is_available():

@@ -7,7 +7,8 @@ rasterize_splat on a welded grid mesh whose shared edges give exact depth
 ties (the lower-face-id rule); equal overflow counts; invalid faces never
 binned, so phase 2 reads the faces unmasked; the plain phase 2's [H, W]
 output against the Pallas kernel's tile-major one on a ragged image; the
-work count behind B1's bound against a brute-force count. On a card, the
+work count behind B1's bound against a brute-force count; K = 2 through
+the binned path equals the naive oracle. On a card, the
 CUDA kernel against the plain version (tests/test_torch_kernels_gpu.py)."""
 
 import numpy as np
@@ -117,9 +118,14 @@ def test_overflow_counts_match(rng):
 
 
 def test_k_above_one_is_refused(rng):
+    """K > 1 was refused until the port had it; now the binned path at K = 2
+    must run and equal the naive oracle (test_torch_rasterize_k.py holds both
+    against the JAX package)."""
     fv, valid = _random_soup(rng, 10)
-    with pytest.raises(NotImplementedError):
-        P.rasterize_binned(_t(fv), _t(valid), SIZE, faces_per_pixel=2)
+    got = P.rasterize_binned(_t(fv), _t(valid), SIZE, faces_per_pixel=2)
+    want = P.rasterize_naive(_t(fv), _t(valid), SIZE, faces_per_pixel=2)
+    assert got.face_indices.shape == (*SIZE, 2)
+    np.testing.assert_array_equal(got.face_indices.numpy(), want.face_indices.numpy())
 
 
 

@@ -60,6 +60,19 @@ def test_activate(scene):
     assert int(scene["pv"].occupied_count()) > 100
 
 
+def test_activate_with_fewer_candidates_than_slots():
+    """A candidate list shorter than the block table (the 16x16 default
+    scene's first frame has 1728 keys for 2048 slots): the port indexed past
+    its end, where the JAX gather clamps."""
+    keys = np.full((40,), 2**31 - 1, np.int32)
+    keys[:5] = [(512 << 20) | (512 << 10) | (512 + i) for i in (3, 1, 4, 1, 5)]
+    jv = JV.create(capacity=64).activate(jnp.asarray(keys))
+    pv = PV.create(capacity=64, device="cpu").activate(torch.as_tensor(keys))
+    for name in ("slot_keys", "sorted_keys", "slot_of_sorted"):
+        np.testing.assert_array_equal(getattr(pv, name).numpy(), np.asarray(getattr(jv, name)))
+    assert int(pv.occupied_count()) == 4
+
+
 def test_rigid_integrate(scene):
     jv, pv = scene["jv"], scene["pv"]
     np.testing.assert_allclose(pv.tsdf.numpy(), np.asarray(jv.tsdf), atol=1e-5)
