@@ -29,8 +29,9 @@ non-zero, on any failure):
      kernels on the card and through the plain versions on the CPU must
      agree;
   7. data terms: the fitter's "face", "fast" and "autodiff" data terms on
-     the main path's last GN inputs must agree (the JAX package's parity
-     tolerances), each timed with CUDA events;
+     the main path's first GN inputs (frame 1 from the identity warp, the
+     same in every run: their digest is printed) must agree (the JAX
+     package's parity tolerances), each timed with CUDA events;
   8. neural prior: the 448x640 shifted plane (3 frames, 8 cm per frame, its
      oracle flow, rigid odometry off) twice, FIRST_TO_CURRENT with Euclidean
      pixel anchors and PREVIOUS_TO_CURRENT with shortest-path anchors: the
@@ -65,13 +66,34 @@ non-zero, on any failure):
      splat, the id remap) and through rasterize_splat on the faces expanded
      in the caller's order, with the rasterizer bench's tier caps: no drops,
      face ids equal but at equal-depth ties, depths within 1e-5; B2 held to
-     its plain version at this size, its device ms beside its byte bound.
-Phases 2 and 8-13 each set the kernels' launch counts to 0 before they drive
+     its plain version at this size, its device ms beside its byte bound;
+ 14. train: DeformNet training. A DeepDeform-layout split of 4 pairs
+     (480x640 shifted and bending patches, PNG frames, closed-form flows)
+     under a temporary directory, its graphs and labels from
+     create_graph_data.main; train(labeled=True) at stage 1_solver at the JAX
+     train()'s defaults (448x640 crop, batch 4, 128 nodes, 10,000 matches,
+     3 GN iterations, SGD momentum 0.9), 5 steps of one repeated batch at lr
+     1e-4: finite losses, the last below the first, the checkpoint reloads
+     bit-equal, the eval step's metrics finite; one step each of 0_flow,
+     2_mask (flow net bit-equal) and 3_refine, each trained net moving;
+     generate -> evaluate over the split, every metric finite (None only
+     where no pair has a valid node); one 1_solver step at 192x256, batch 1,
+     on the card and on the CPU from the same weights and batch with TF32
+     turned on globally beforehand: gradient hooks must read TF32 off for
+     cuBLAS and cuDNN throughout the step's backward (and on in the
+     control's), the loss and the gradients' relative L2 difference within
+     TRAIN_LOSS_RTOL / TRAIN_GRAD_RTOL. Printed, never
+     gated: step, forward and backward ms (CUDA events), data seconds per
+     batch, peak memory, the GN's share of the backward, one traced step
+     and the same step with TF32 left on (a control).
+Phases 2 and 8-14 each set the kernels' launch counts to 0 before they drive
 their path and read them after: every kernel of a path must have launched in
-it (phase 13's path runs B2 only: its splat is plain PyTorch). The kernels
-line (phase 3's measurements, each path's launch counts and the new shapes'
-times) comes next, and the last line is {"ok": true, "device": {...}}.
-Without a CUDA device the script exits non-zero and prints no result.
+it (phase 13's path runs B2 only: its splat is plain PyTorch; phase 14's
+runs neither, training rasterizes nothing). Each phase prints a start line
+first. The kernels line (phase 3's measurements, each path's launch counts
+and the new shapes' times) comes next, and the last line is
+{"ok": true, "device": {...}}. Without a CUDA device the script exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -83,6 +105,9 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+
+# the checkout stays as git wrote it: no __pycache__ beside the sources
+sys.dont_write_bytecode = True
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and FP32 outside the
 # tensor cores. Built with --fmad=false, the kernels' FP32 issue ceiling is
@@ -156,15 +181,53 @@ def device_ms_per_launch(fns: dict, iters: int) -> dict:
     return out
 
 
+def _snapshot(value):
+    """``value`` with every tensor in it (inside tuples, lists and named
+    tuples too) cloned, so later in-place updates leave it as it was."""
+    import torch
+
+    if isinstance(value, torch.Tensor):
+        return value.detach().clone()
+    if isinstance(value, tuple) and hasattr(value, "_fields"):
+        return type(value)(*[_snapshot(v) for v in value])
+    if isinstance(value, (tuple, list)):
+        return type(value)(_snapshot(v) for v in value)
+    return value
+
+
+def tensor_digest(values) -> str:
+    """SHA-1 over the bytes of every tensor in ``values`` (in order): equal
+    digests mean bit-equal inputs."""
+    import hashlib
+
+    import torch
+
+    digest = hashlib.sha1()
+
+    def add(value):
+        if isinstance(value, torch.Tensor):
+            digest.update(str((value.dtype, tuple(value.shape))).encode())
+            digest.update(value.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+        elif isinstance(value, (tuple, list)):
+            for v in value:
+                add(v)
+
+    add(values)
+    return digest.hexdigest()
+
+
 class LastCall:
     """Replaces ``module.name`` (or ``module[name]`` of a dict) by a function
     that records the arguments of its last call and counts its calls, then
-    calls the original; :meth:`restore` puts it back."""
+    calls the original; :meth:`restore` puts it back. With ``keep_first`` it
+    also keeps a copy of its first call's arguments (``first_args``)."""
 
-    def __init__(self, module, name: str):
+    def __init__(self, module, name: str, keep_first: bool = False):
         self.module, self.name = module, name
         self.fn = module[name] if isinstance(module, dict) else getattr(module, name)
         self.args, self.kwargs = None, None
+        self.first_args = None
+        self.keep_first = keep_first
         self.calls = 0
         self._set(self)
 
@@ -176,6 +239,8 @@ class LastCall:
 
     def __call__(self, *args, **kwargs):
         self.args, self.kwargs = args, kwargs
+        if self.keep_first and self.calls == 0:
+            self.first_args = _snapshot(args)
         self.calls += 1
         return self.fn(*args, **kwargs)
 
@@ -256,11 +321,12 @@ def phase_main_path():
     torch.cuda.reset_peak_memory_stats()
     # the inputs of each kernel's last launch, for phase 3: the fitter's B2
     # call and rasterize_binned's B1 call; the odometry's calls (counted per
-    # frame) and last depth pair, for phase 4
+    # frame) and last depth pair, for phase 4; the data term's first inputs
+    # (frame 1, from the identity warp), for phase 7
     last = {"mesh_expand": LastCall(fitter, "expand_project_faces"),
             "rasterize_tiles": LastCall(rasterize, "rasterize_tiles"),
             "odometry": LastCall(rigid_odometry, "rigid_odometry_multi_scale"),
-            "data_term": LastCall(fitter._DATA_TERMS, "face")}
+            "data_term": LastCall(fitter._DATA_TERMS, "face", keep_first=True)}
     native.reset_launch_counts()
     pipe = FusionPipeline(params, seq.intrinsics)  # the default device: the card
     t0 = time.perf_counter()
@@ -582,17 +648,21 @@ def phase_reference():
 
 
 def phase_data_terms(data_term_call):
-    """The fitter's three data terms on the main path's last GN inputs, on
-    the card. Only "face" compacts pixels: at the configured fraction where
-    its cap is above the covered-pixel count, else at 0 (no row dropped),
-    so the three compute the same sums."""
+    """The fitter's three data terms on the main path's first GN inputs
+    (frame 1, first iteration, from the identity warp), on the card. Those
+    inputs are the same in every run (their digest is printed); the main
+    path's later states are not (float ``index_add_`` on the card sums in
+    an order that changes between runs, and the fits amplify it), and the
+    gate's f32 noise moved with them. Only "face" compacts pixels: at the
+    configured fraction where its cap is above the covered-pixel count,
+    else at 0 (no row dropped), so the three compute the same sums."""
     import dataclasses
 
     import torch
 
     from dynamicfuion_python_tpu_torch.models import fitter
 
-    args = list(data_term_call.args)
+    args = list(data_term_call.first_args)
     config, frag_faces, ref_mask = args[11], args[7], args[9]
     total = frag_faces.numel()
     covered = int(((frag_faces.reshape(-1) >= 0) & ref_mask.reshape(-1)).sum())
@@ -607,7 +677,7 @@ def phase_data_terms(data_term_call):
             out[name] = fn(*call_args)
             ms[name] = cuda_time_ms(lambda fn=fn: fn(*call_args), 3, warmup=1)
     row = {"phase": "data_terms", "pixels": total, "covered_pixels": covered, "compaction_cap": cap,
-           "face_fraction": face_frac, "ms": ms, "nodes": args[12]}
+           "face_fraction": face_frac, "ms": ms, "nodes": args[12], "inputs_sha1": tensor_digest(args)}
     for a, b in (("face", "fast"), ("face", "autodiff"), ("fast", "autodiff")):
         (ha, ga, la), (hb, gb, lb) = out[a], out[b]
         key = f"{a}_vs_{b}"
@@ -1242,6 +1312,250 @@ def phase_indexed():
     return launches, b2
 
 
+# DeformNet training at the JAX train()'s defaults (448x640 crop of 480x640,
+# batch 4, 128 nodes, 10,000 matches, 3 GN iterations, SGD momentum 0.9)
+TRAIN_CROP = (448, 640)
+TRAIN_SIZE = (480, 640)
+PARITY_CROP = (192, 256)
+# card against CPU, one 1_solver step at batch 1 from the same weights and
+# batch, TF32 on globally beforehand (the step turns it off): the loss
+# relative, the gradients as ||card - CPU|| / ||CPU|| over all parameters.
+# Each bound is 10x or more the worst value PERF.md records beside it
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_RTOL = 2e-4
+
+
+def _train_batch(dataset, indices, seed: int) -> dict:
+    """A labeled batch prepared as train() prepares it: ground-truth node
+    translations and match-subsampling uniforms (numpy)."""
+    import numpy as np
+
+    from dynamicfuion_python_tpu_torch.apps import train
+
+    batch = dataset.batch(indices)
+    batch["node_translations_gt"] = train.node_translations_gt_from_scene_flow(batch)[0]
+    batch["match_subsample_uniforms"] = (
+        np.random.default_rng(seed).uniform(size=batch["target"].shape[:3]).astype(np.float32))
+    return batch
+
+
+def _stage_model(stage: str, state: dict, device, gn_iterations: int | None = None):
+    """The stage's model as train() builds it (weights seeded by 0, then
+    ``state`` where it has them), on ``device``."""
+    import torch
+
+    from dynamicfuion_python_tpu_torch.apps import train
+    from dynamicfuion_python_tpu_torch.models.deform_net import seeded_state_dict
+    from dynamicfuion_python_tpu_torch.models.gn_point_cloud_optimizer import GnConfig
+
+    model = train.build_model(train.STAGES[stage], 128, 10000)
+    if gn_iterations is not None:
+        model.gn_config = GnConfig(num_iterations=gn_iterations, lm_factor=0.1)
+    model.load_state_dict(seeded_state_dict(model, torch.Generator().manual_seed(0)))
+    model.load_state_dict({k: v for k, v in state.items() if k in model.state_dict()}, strict=False)
+    return model.to(device)
+
+
+def _one_step(stage: str, state: dict, batch_np: dict, device, tf32_backward: bool = False):
+    """One SGD step (lr 1e-4) of ``stage`` from ``state`` on a numpy batch:
+    (loss, {name: gradient on the CPU}, backward TF32 flags). The flags are
+    the set of (cuBLAS, cuDNN) ``allow_tf32`` pairs in force while the
+    backward computed each parameter's gradient, read by gradient hooks.
+    ``tf32_backward`` runs the forward and backward outside the step's
+    TF32-off block (the control)."""
+    import torch
+
+    from dynamicfuion_python_tpu_torch.apps import train
+
+    model = _stage_model(stage, state, device)
+    optimizer, scheduler = train._stage_optimizer(train.STAGES[stage], model, 1e-4, use_adam=False)
+    batch = train.batch_to_device(dict(batch_np), device)
+    flags = set()
+
+    def read_flags(grad):
+        flags.add((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32))
+
+    hooks = [p.register_hook(read_flags) for p in model.parameters() if p.requires_grad]
+    if tf32_backward:
+        loss, _ = train._forward_and_loss(model, batch, train.STAGES[stage])
+        loss.backward()
+    else:
+        loss, _ = train.make_train_step(model, optimizer, train.STAGES[stage], scheduler)(batch)
+    for hook in hooks:
+        hook.remove()
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters() if p.grad is not None}
+    return float(loss.detach()), grads, flags
+
+
+def _grad_diff(got: dict, want: dict) -> dict:
+    """Card-against-CPU gradient differences: the relative L2 norm over all
+    tensors (gated), and the largest per-tensor max |diff| / max |CPU|
+    (printed: a tensor whose gradient is tiny makes it jump between runs)."""
+    import torch
+
+    per_tensor = [float((got[k] - w).abs().max() / w.abs().max()) for k, w in want.items() if float(w.abs().max()) > 0]
+    num = sum(float(((got[k] - w) ** 2).sum()) for k, w in want.items())
+    den = sum(float((w**2).sum()) for w in want.values())
+    return {"grad_max_rel_per_tensor": max(per_tensor), "grad_rel_l2": (num / den) ** 0.5, "tensors": len(per_tensor),
+            "finite": all(bool(torch.isfinite(g).all()) for g in got.values())}
+
+
+def phase_train(smi: str) -> dict:
+    """DeformNet training on the card: a DeepDeform-layout split written
+    under a temporary directory (two 480x640 sequences, a shifted and a
+    bending patch, 4 pairs, PNG frames, closed-form optical and scene flow),
+    its graphs and labels from create_graph_data.main, then train() at stage
+    1_solver at the JAX train()'s defaults (5 steps of one repeated batch,
+    lr 1e-4, an eval step), one step each of 0_flow / 2_mask / 3_refine,
+    generate -> evaluate over the split, and one 1_solver step on the card
+    against the CPU at 192x256, batch 1. Returns the kernel launches of the
+    training path (the training path rasterizes nothing)."""
+    import numpy as np
+    import torch
+
+    from dynamicfuion_python_tpu_torch.apps import create_graph_data, evaluate, generate, train
+    from dynamicfuion_python_tpu_torch.apps.profile_frame import device_us
+    from dynamicfuion_python_tpu_torch.data.deform_dataset import LabeledDeformDataset
+    from dynamicfuion_python_tpu_torch.data.synthetic_pairs import write_split
+    from dynamicfuion_python_tpu_torch.ops import native
+    from dynamicfuion_python_tpu_torch.settings import TrainingConfig
+
+    row = {"phase": "train", "nvidia_smi": smi, "image_size": list(TRAIN_CROP), "batch": 4, "max_nodes": 128,
+           "gn_max_matches": 10000, "gn_iterations": 3}
+    cfg = TrainingConfig(shuffle=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        for seq in write_split(root / "train", TRAIN_SIZE):
+            create_graph_data.main([str(seq), "--frames", "0", "--labels", str(root / "train.json")])
+        row["dataset_s"] = time.perf_counter() - t0
+
+        native.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        stats: dict = {}
+        t0 = time.perf_counter()
+        model, losses = train.train(str(root), stage="1_solver", labeled=True, iterations=5, learning_rate=1e-4,
+                                    eval_every=5, checkpoint_dir=str(root / "ckpt"), training_config=cfg, stats=stats)
+        row["train_1_solver_s"] = time.perf_counter() - t0
+        row["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        row["losses"] = losses
+        check(len(losses) == 5 and all(math.isfinite(x) for x in losses), f"train: losses {losses}")
+        check(losses[-1] < losses[0], f"train: the last loss {losses[-1]} is not below the first {losses[0]}")
+        row.update({k: stats[k] for k in ("step_ms", "forward_ms", "backward_ms", "optimizer_ms")})
+        row["data_s_per_batch"] = float(np.median(stats["data_s"]))
+        row["eval_metrics"] = {k: v for k, v in stats["eval_history"][-1].items() if k != "iteration"}
+        check(all(math.isfinite(v) for v in row["eval_metrics"].values()), f"train: eval metrics {row['eval_metrics']}")
+        trained = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        reloaded = train.load_checkpoint(root / "ckpt", train.build_model(train.STAGES["1_solver"], 128, 10000))
+        check(all(torch.equal(reloaded.state_dict()[k], v) for k, v in trained.items()),
+              "train: the checkpoint does not reload bit-equal")
+        row["checkpoint_bit_equal"] = True
+
+        stages = {}
+        for stage, frozen, trains in (("0_flow", (), ("flow_net",)), ("2_mask", ("flow_net",), ("mask_net",)),
+                                      ("3_refine", (), ("flow_net", "mask_net"))):
+            # train() starts each stage from the weights seeded by 0, as _stage_model builds them
+            before = _stage_model(stage, {}, "cpu").state_dict()
+            after, stage_losses = train.train(str(root), stage=stage, labeled=True, iterations=1, learning_rate=1e-4,
+                                              eval_every=0, checkpoint_dir=str(root / f"ckpt_{stage}"),
+                                              training_config=cfg)
+            after = {k: v.cpu() for k, v in after.state_dict().items()}
+            moved = {net: any(not torch.equal(after[k], before[k]) for k in before if k.startswith(net + "."))
+                     for net in ("flow_net", "mask_net") if any(k.startswith(net + ".") for k in before)}
+            check(all(not moved[n] for n in frozen), f"train: {stage} moved a frozen net: {moved}")
+            check(all(moved[n] for n in trains), f"train: {stage} left a trained net unchanged: {moved}")
+            check(math.isfinite(stage_losses[0]), f"train: {stage} loss {stage_losses}")
+            stages[stage] = {"loss": stage_losses[0], "moved": moved, "frozen_bit_equal": list(frozen)}
+        row["stages"] = stages
+
+        t0 = time.perf_counter()
+        names = generate.generate(str(root), out_dir=str(root / "pred"), checkpoint_dir=str(root / "ckpt"),
+                                  labels_filename="train", image_size=TRAIN_CROP)
+        metrics = evaluate.evaluate(str(root), predictions_dir=str(root / "pred"), labels_filename="train",
+                                    image_size=TRAIN_CROP)
+        row["generate_evaluate_s"] = time.perf_counter() - t0
+        row["evaluate"] = metrics
+        any_valid_node = any(float(np.load(root / "pred" / f"{n}.npz")["deformations_validity"].sum()) > 0 for n in names)
+        check(metrics["pair_count"] == 4, f"train: evaluate scored {metrics['pair_count']} pairs")
+        for key in ("epe_3d", "valid_solve_ratio", "graph_error_3d"):
+            value = metrics[key]
+            if value is None:
+                check(key == "graph_error_3d" and not any_valid_node, f"train: evaluate {key} is None")
+            else:
+                check(math.isfinite(value), f"train: evaluate {key} = {value}")
+        launches = dict(native.launch_counts)
+
+        # one step on the card against the CPU, TF32 on globally beforehand
+        dataset = LabeledDeformDataset(root, "train", input_size=PARITY_CROP, max_nodes=128)
+        batch = _train_batch(dataset, [0], seed=1)
+        previous = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        try:
+            cpu_loss, cpu_grads, _ = _one_step("1_solver", trained, batch, "cpu")
+            card_loss, card_grads, card_flags = _one_step("1_solver", trained, batch, "cuda")
+            check((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == (True, True),
+                  "train: the step did not restore the global TF32 flags")
+            tf32_loss, tf32_grads, tf32_flags = _one_step("1_solver", trained, batch, "cuda", tf32_backward=True)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = previous
+        # the step's own precision, read while its backward ran: TF32 off for
+        # cuBLAS and cuDNN; the control's hooks see it on
+        row["backward_tf32_flags"] = {"step": sorted(card_flags), "control": sorted(tf32_flags)}
+        check(card_flags == {(False, False)}, f"train: the step's backward ran with TF32 flags {sorted(card_flags)}")
+        check(tf32_flags == {(True, True)}, f"train: the control's backward ran with TF32 flags {sorted(tf32_flags)}")
+        card = {"loss_rel": abs(card_loss - cpu_loss) / abs(cpu_loss), **_grad_diff(card_grads, cpu_grads)}
+        row["card_vs_cpu"] = {**card, "image_size": list(PARITY_CROP), "loss_rtol": TRAIN_LOSS_RTOL,
+                              "grad_rtol": TRAIN_GRAD_RTOL}
+        check(card["finite"] and math.isfinite(card_loss), "train: non-finite card gradients")
+        check(card["loss_rel"] <= TRAIN_LOSS_RTOL, f"train: card loss {card_loss} against CPU {cpu_loss}")
+        check(card["grad_rel_l2"] <= TRAIN_GRAD_RTOL, f"train: card gradients against the CPU's: {card}")
+        # the control, never a gate: the same step with TF32 left on
+        row["card_tf32_vs_cpu"] = {"loss_rel": abs(tf32_loss - cpu_loss) / abs(cpu_loss),
+                                   **_grad_diff(tf32_grads, cpu_grads)}
+
+        # the GN's share of the backward: the same batch without the solve
+        big = _train_batch(LabeledDeformDataset(root, "train", input_size=TRAIN_CROP, max_nodes=128), [0, 1, 2, 3], 2)
+        big = train.batch_to_device(big, "cuda")
+        backward = {}
+        for iterations in (3, 0):
+            m = _stage_model("1_solver", trained, "cuda", gn_iterations=iterations)
+            opt, sched = train._stage_optimizer(train.STAGES["1_solver"], m, 1e-4, use_adam=False)
+            step = train.make_train_step(m, opt, train.STAGES["1_solver"], sched)
+            times = []
+            for _ in range(3):
+                marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                step(big, marks)
+                torch.cuda.synchronize()
+                times.append(marks[1].elapsed_time(marks[2]))
+            backward[iterations] = float(np.median(times[1:]))
+            if iterations == 3:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(big)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+                with torch.profiler.profile(activities=acts) as prof:
+                    step(big)
+                    torch.cuda.synchronize()
+                events = prof.key_averages()
+                kernels = sorted((e for e in events if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA),
+                                 key=lambda e: -device_us(e))
+                device_ms = sum(device_us(e) for e in kernels) / 1e3
+                row["traced_step"] = {
+                    "step_wall_ms": wall_ms, "device_ms": device_ms, "device_busy_share": device_ms / wall_ms,
+                    "kernel_launches": sum(e.count for e in kernels),
+                    "top_device_ops": [{"name": e.key[:70], "device_ms": device_us(e) / 1e3, "calls": e.count}
+                                       for e in kernels[:8]],
+                }
+        row["backward_ms_gn3"], row["backward_ms_gn0"] = backward[3], backward[0]
+        row["gn_backward_share"] = (backward[3] - backward[0]) / backward[3]
+    row["launches"] = launches
+    emit(row)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1249,28 +1563,36 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     started = time.perf_counter()
-    phase_build()
-    last, launches, fitted, pipe = phase_main_path()
-    kernels = phase_kernels(last, launches, fitted)
-    phase_odometry(last["odometry"])
-    phase_entry_point()
-    phase_reference()
-    phase_data_terms(last["data_term"])
-    prior_launches = phase_neural_prior()
-    deform_launches = phase_deform_net()
-    renderer_launches, renderer = phase_renderer(pipe)
-    rendered_launches = phase_rendered_prior()
-    readout_launches = phase_volume_readout(pipe)
-    indexed_launches, b2_headline = phase_indexed()
+
+    def run(name, fn, *args):
+        """Each phase announces itself first, so a failing log shows where it stopped."""
+        emit({"phase": name, "start": True, "at_s": time.perf_counter() - started})
+        return fn(*args)
+
+    smi = run("build", phase_build)
+    last, launches, fitted, pipe = run("main_path", phase_main_path)
+    kernels = run("kernels", phase_kernels, last, launches, fitted)
+    run("odometry", phase_odometry, last["odometry"])
+    run("entry_point", phase_entry_point)
+    run("reference", phase_reference)
+    run("data_terms", phase_data_terms, last["data_term"])
+    prior_launches = run("neural_prior", phase_neural_prior)
+    deform_launches = run("deform_net", phase_deform_net)
+    renderer_launches, renderer = run("renderer", phase_renderer, pipe)
+    rendered_launches = run("rendered_prior", phase_rendered_prior)
+    readout_launches = run("volume_readout", phase_volume_readout, pipe)
+    indexed_launches, b2_headline = run("indexed", phase_indexed)
+    train_launches = run("train", phase_train, smi)
     for k in kernels:
-        for run, counts in prior_launches.items():
-            k[f"launches_neural_prior_{run}"] = counts[k["name"]]
+        for run_name, counts in prior_launches.items():
+            k[f"launches_neural_prior_{run_name}"] = counts[k["name"]]
         k["launches_deform_net"] = deform_launches[k["name"]]
         k["launches_renderer"] = renderer_launches[k["name"]]
-        for run, counts in rendered_launches.items():
-            k[f"launches_rendered_prior_{run}"] = counts[k["name"]]
+        for run_name, counts in rendered_launches.items():
+            k[f"launches_rendered_prior_{run_name}"] = counts[k["name"]]
         k["launches_volume_readout"] = readout_launches[k["name"]]
         k["launches_indexed"] = indexed_launches[k["name"]]
+        k["launches_train"] = train_launches[k["name"]]
     b1_row, b2_row = kernels
     b1_row["renderer_bin_capacity_1024"] = renderer["b1"]
     b2_row["indexed_4470784_faces"] = b2_headline

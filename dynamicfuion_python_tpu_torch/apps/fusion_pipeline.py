@@ -26,8 +26,10 @@ The prior's source image is the keyframe's, or (``fusion.source_image_mode``
 mesh warped by the current field and rendered by ``MeshRenderer``, with the
 keyframe's valid pixels laid over it in the overlay mode; the rendered-mesh
 recorder (``telemetry.record_rendered_warped_mesh``) renders the same mesh
-after each frame. Not ported yet, and refused with ``NotImplementedError``:
-Flax msgpack prior checkpoints and the SPMD frame loop (ROADMAP A17).
+after each frame. The prior's checkpoint is a reference ``.pt`` / ``.pth`` /
+``.npz`` file, a training checkpoint of ``apps/train.py`` or a Flax msgpack
+parameter file. Not ported yet, and refused with ``NotImplementedError``:
+the SPMD frame loop (ROADMAP A17).
 
 Run:  python -m dynamicfuion_python_tpu_torch.apps.fusion_pipeline \\
           --sequence <dir>|synthetic [--frames N] [--size HxW] \\
@@ -581,8 +583,8 @@ def resolve_frame_metrics(metrics: dict) -> dict:
 
 
 def _load_prior_network(checkpoint_path: str, num_nodes: int, device) -> DeformNet:
-    """A DeformNet on ``device`` with a reference checkpoint's weights
-    (``.pt`` / ``.pth`` / ``.npz``; a Flax msgpack file is refused)."""
+    """A DeformNet on ``device`` with a checkpoint's weights (``.pt`` /
+    ``.pth`` / ``.npz``, or a Flax ``.msgpack`` parameter file)."""
     net = DeformNet(use_mask=True, num_nodes=num_nodes, gn_config=GnConfig())
     load_deform_net_checkpoint(net, checkpoint_path)
     return net.to(device).eval()

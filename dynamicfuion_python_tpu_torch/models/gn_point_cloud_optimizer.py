@@ -7,10 +7,16 @@ deltas (``torch.func``: ``vmap(jacrev)``), ARAP residuals over the flat graph
 edges (analytic jacobians), A = J^T J + lm I and b = -J^T r assembled per
 node pair (``index_add_`` of the [M, 4, 4, 6, 6] anchor-pair blocks into
 [N * N, 6, 6]), a dense solve and the axis-angle update. The dense [3M x 6N]
-jacobian is never formed. A step whose solve fails (``solve_ex`` reports it in
-``info``), comes out non-finite or trips the optional condition-number cutoff
-marks the solve invalid and freezes the transforms; nothing syncs with the
-host.
+jacobian is never formed. A step whose factorization fails (``lu_factor_ex``
+reports it in ``info``), comes out non-finite or trips the optional
+condition-number cutoff marks the solve invalid and freezes the transforms;
+nothing syncs with the host.
+
+Training differentiates through the whole solve: the jacobians
+(``vmap(jacrev)`` inside the outer autograd graph), the assembly and the
+dense solve. The system is factored once per iteration; a discarded step
+swaps in the identity's factors, so its backward never meets a failed
+factorization and its gradients stay finite.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from dynamicfuion_python_tpu_torch.ops.linalg.rodrigues import axis_angle_to_matrix, skew
+from dynamicfuion_python_tpu_torch.ops.warp import gather_rows
 
 
 class GnConfig(NamedTuple):
@@ -46,6 +53,27 @@ class GnResult(NamedTuple):
     losses: torch.Tensor  # f32[iterations]
     valid_solve: torch.Tensor  # bool[]
     condition_numbers: torch.Tensor  # f32[iterations] (inf when not checked)
+
+
+class _FactoredSolve(torch.autograd.Function):
+    """``x = A^-1 b`` from LU factors of ``A`` made outside the autograd
+    graph: the forward and the backward's adjoint solve reuse them (as
+    ``torch.linalg.solve``'s own backward reuses its LU). ``a`` only carries
+    the gradient, ``-A^-T g x^T``."""
+
+    @staticmethod
+    def forward(a, b, lu, pivots):
+        return torch.linalg.lu_solve(lu, pivots, b[:, None])[:, 0]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[2], inputs[3], output)
+
+    @staticmethod
+    def backward(ctx, grad_x):
+        lu, pivots, x = ctx.saved_tensors
+        grad_b = torch.linalg.lu_solve(lu, pivots, grad_x[:, None], adjoint=True)[:, 0]
+        return -grad_b[:, None] * x[None, :], grad_b, None, None
 
 
 def _match_residual(
@@ -84,8 +112,8 @@ def _edge_residual_jacobian(nodes, rot, trans, edges, edge_weights, config: GnCo
     i = edges[:, 0]
     j = edges[:, 1]
     w = (edge_weights if config.use_edge_weighting else torch.ones_like(edge_weights)) * config.lambda_arap
-    rotated = torch.einsum("eab,eb->ea", rot[i], nodes[j] - nodes[i])
-    res = w[:, None] * (rotated + nodes[i] + trans[i] - (nodes[j] + trans[j]))
+    rotated = torch.einsum("eab,eb->ea", gather_rows(rot, i), nodes[j] - nodes[i])
+    res = w[:, None] * (rotated + nodes[i] + gather_rows(trans, i) - (nodes[j] + gather_rows(trans, j)))
     return res, -w[:, None, None] * skew(rotated), w
 
 
@@ -108,11 +136,12 @@ def optimize_point_cloud_alignment(
     """The GN solve on the device of its inputs; returns a :class:`GnResult`."""
     n = num_nodes
     dev = graph_nodes.device
+    dtype = source_points.dtype  # the inputs' (f32 on the port's paths)
     rot = (
         initial_rotations if initial_rotations is not None
-        else torch.eye(3, dtype=torch.float32, device=dev).expand(n, 3, 3)
+        else torch.eye(3, dtype=dtype, device=dev).expand(n, 3, 3)
     )
-    trans = initial_translations if initial_translations is not None else torch.zeros((n, 3), device=dev)
+    trans = initial_translations if initial_translations is not None else torch.zeros((n, 3), dtype=dtype, device=dev)
     if config.num_iterations == 0:
         # the reference's skip-solver mode: identity transforms, trivially valid
         return GnResult(rot, trans, torch.zeros((1,), device=dev), torch.ones((), dtype=torch.bool, device=dev),
@@ -126,20 +155,22 @@ def optimize_point_cloud_alignment(
     pairs = torch.stack([src, dst.clamp(min=0)], dim=1)
     pair_w = torch.where(edge_ok, graph_edge_weights.reshape(-1) * ke, 0.0)
     i_idx, j_idx = pairs[:, 0], pairs[:, 1]
-    eye3 = torch.eye(3, dtype=torch.float32, device=dev)
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
 
     safe_anchor = source_anchors.clamp(min=0).long()
     anchor_w = torch.where(source_anchors >= 0, source_anchor_weights, 0.0)
-    anchor_nodes = graph_nodes[safe_anchor]  # [M, 4, 3]
+    anchor_nodes = gather_rows(graph_nodes, safe_anchor)  # [M, 4, 3]
     seg = (safe_anchor[:, :, None] * n + safe_anchor[:, None, :]).reshape(-1)
     cw = correspondence_weights
-    zero_delta = torch.zeros((4, 6), dtype=torch.float32, device=dev)
-    eye = torch.eye(6 * n, dtype=torch.float32, device=dev)
+    zero_delta = torch.zeros((4, 6), dtype=dtype, device=dev)
+    eye = torch.eye(6 * n, dtype=dtype, device=dev)
+    identity_pivots = torch.arange(1, 6 * n + 1, dtype=torch.int32, device=dev)  # LAPACK's, 1-based
     valid = torch.ones((), dtype=torch.bool, device=dev)
     losses, condition_numbers = [], []
     for _ in range(config.num_iterations):
         res, jac = _match_residuals_and_jacobians(
-            config, zero_delta, source_points, anchor_nodes, anchor_w, rot[safe_anchor], trans[safe_anchor],
+            config, zero_delta, source_points, anchor_nodes, anchor_w,
+            gather_rows(rot, safe_anchor), gather_rows(trans, safe_anchor),
             target_uv, target_z, intrinsics,
         )
         jac = jac * cw[:, None, None, None]
@@ -147,10 +178,10 @@ def optimize_point_cloud_alignment(
 
         # data J^T J: anchor-pair blocks summed into [N, N, 6, 6]
         pair_blocks = torch.einsum("mrka,mrlb->mklab", jac, jac)  # [M, 4, 4, 6, 6]
-        h = torch.zeros((n * n, 6, 6), dtype=torch.float32, device=dev)
+        h = torch.zeros((n * n, 6, 6), dtype=dtype, device=dev)
         h.index_add_(0, seg, pair_blocks.reshape(-1, 6, 6))
         h = h.reshape(n, n, 6, 6)
-        g = torch.zeros((n, 6), dtype=torch.float32, device=dev)
+        g = torch.zeros((n, 6), dtype=dtype, device=dev)
         g.index_add_(0, safe_anchor.reshape(-1), -torch.einsum("mrka,mr->mka", jac, res_w).reshape(-1, 6))
 
         # ARAP: J_i = [jrot | w I], J_j = [0 | -w I]
@@ -173,10 +204,10 @@ def optimize_point_cloud_alignment(
 
         # dense system; a failed factorization counts as a non-finite step
         h_dense = h.permute(0, 2, 1, 3).reshape(6 * n, 6 * n) + config.lm_factor * eye
-        delta, info = torch.linalg.solve_ex(h_dense, g.reshape(-1))
-        delta = delta.reshape(n, 6)
+        g_flat = g.reshape(-1)
         if config.check_condition_num:
-            eigs = torch.abs(torch.linalg.eigvalsh(h_dense))
+            # a guard only: the eigenvalues feed a boolean, never a gradient
+            eigs = torch.abs(torch.linalg.eigvalsh(h_dense.detach()))
             condition_number = torch.amax(eigs) / torch.clamp(torch.amin(eigs), min=1e-30)
             if config.break_on_condition_num:
                 cond_ok = torch.isfinite(condition_number) & (condition_number <= config.max_condition_num)
@@ -185,8 +216,14 @@ def optimize_point_cloud_alignment(
         else:
             condition_number = torch.full((), torch.inf, device=dev)
             cond_ok = torch.ones((), dtype=torch.bool, device=dev)
-        step_ok = torch.all(torch.isfinite(delta)) & cond_ok & (info == 0)
-        delta = torch.where(step_ok & torch.isfinite(delta), delta, 0.0)
+        lu, pivots, info = torch.linalg.lu_factor_ex(h_dense.detach())
+        probe = torch.linalg.lu_solve(lu, pivots, g_flat.detach()[:, None])
+        step_ok = torch.all(torch.isfinite(probe)) & cond_ok & (info == 0)
+        # a discarded step solves the identity for 0: its backward then never
+        # meets the failed factors (0 * NaN is NaN), and the delta is 0
+        lu = torch.where(step_ok, lu, eye)
+        pivots = torch.where(step_ok, pivots, identity_pivots)
+        delta = _FactoredSolve.apply(h_dense, torch.where(step_ok, g_flat, 0.0), lu, pivots).reshape(n, 6)
         valid = valid & step_ok
 
         new_rot = torch.einsum("nab,nbc->nac", axis_angle_to_matrix(delta[:, :3]), rot)

@@ -7,8 +7,9 @@ the layers. ``LAYERS`` maps each reference layer to the JAX package's Flax
 parameter path (the table of the JAX module's docstring), which
 ``utils/state_conversion.py`` uses to carry Flax parameters the other way.
 
-Flax msgpack checkpoints need flax, which the port does not use: they are
-refused.
+A Flax msgpack checkpoint (the JAX package's parameter tree) is decoded by
+``utils/flax_msgpack.py`` and carried to the port's names by
+``utils/state_conversion.py::deform_net_state_from_jax``.
 """
 
 from __future__ import annotations
@@ -54,16 +55,19 @@ LAYERS = _layers()
 
 def load_state_dict(path: str | Path) -> dict[str, torch.Tensor]:
     """A reference checkpoint (``.pt`` / ``.pth``, also wrapped as
-    ``{"state_dict": ...}``, or ``.npz``) as {name: CPU tensor}."""
+    ``{"state_dict": ...}``, or ``.npz``) or a Flax msgpack parameter file
+    (``.msgpack``) as {name: CPU tensor}."""
     path = Path(path)
     if path.suffix == ".npz":
         with np.load(path) as data:
             return {k: torch.as_tensor(data[k]) for k in data.files}
+    if path.suffix == ".msgpack":
+        from dynamicfuion_python_tpu_torch.utils import flax_msgpack
+        from dynamicfuion_python_tpu_torch.utils.state_conversion import deform_net_state_from_jax
+
+        return deform_net_state_from_jax(flax_msgpack.load(path))
     if path.suffix not in (".pt", ".pth"):
-        raise NotImplementedError(
-            f"{path.name}: only .pt / .pth / .npz checkpoints load in the PyTorch port; a Flax msgpack "
-            "checkpoint needs flax (ROADMAP A12, open item)"
-        )
+        raise ValueError(f"{path.name}: a DeformNet checkpoint is a .pt, .pth, .npz or Flax .msgpack file")
     state = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(state, dict) and "state_dict" in state:
         state = state["state_dict"]

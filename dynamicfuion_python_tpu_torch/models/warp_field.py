@@ -1,5 +1,6 @@
 """Embedded-deformation graph warp fields (port of
-``dynamicfuion_python_tpu/models/warp_field.py``: ``WarpField`` and
+``dynamicfuion_python_tpu/models/warp_field.py``: ``WarpField``,
+``GraphWarpField`` with ``compute_clusters``, and
 ``HierarchicalGraphWarpField``).
 
 Warp fields are small dataclasses holding tensors on one device; state
@@ -127,6 +128,28 @@ class WarpField:
     def translate_nodes(self, translation_deltas: torch.Tensor) -> "WarpField":
         return self.replace(node_translations=self.node_translations + translation_deltas)
 
+    def get_warped_nodes(self) -> torch.Tensor:
+        return self.node_positions + self.node_translations
+
+    def apply_transformations(self, rotations: torch.Tensor, translations: torch.Tensor) -> "WarpField":
+        """The same field with its node transforms replaced."""
+        return self.replace(node_rotations=rotations, node_translations=translations)
+
+    def reset_rotations(self) -> "WarpField":
+        eye = torch.eye(3, dtype=torch.float32, device=self.device).expand(self.node_rotations.shape)
+        return self.replace(node_rotations=eye.contiguous())
+
+    def clone(self) -> "WarpField":
+        """A copy whose tensors share no storage with this field's."""
+        return dataclasses.replace(
+            self,
+            **{
+                f.name: getattr(self, f.name).clone()
+                for f in dataclasses.fields(self)
+                if isinstance(getattr(self, f.name), torch.Tensor)
+            },
+        )
+
 
 def _coverage_weights_squared(node_positions, node_coverage, method):
     """FIXED: coverage^2 broadcast. VARIABLE: squared distance to the nearest
@@ -137,6 +160,63 @@ def _coverage_weights_squared(node_positions, node_coverage, method):
         return torch.full((n,), float(np.float32(base)), dtype=torch.float32, device=node_positions.device)
     d2, _ = knn(node_positions, node_positions, 2)
     return d2[:, 1].contiguous()
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphWarpField(WarpField):
+    """Flat graph warp field: the nodes plus their -1-padded neighbor lists
+    ``edges`` int32[N, Ke], ``edge_weights`` f32[N, Ke] and the
+    connected-component label of each node, ``clusters`` int32[N]."""
+
+    edges: torch.Tensor = None
+    edge_weights: torch.Tensor = None
+    clusters: torch.Tensor = None
+
+    @classmethod
+    def from_graph(cls, nodes, edges, edge_weights=None, clusters=None, device=None, **kwargs) -> "GraphWarpField":
+        """A field of identity transforms on ``device`` (the CUDA card unless
+        the caller passes ``device="cpu"``); edge weights default to 1 per
+        edge, clusters to the connected components of ``edges``."""
+        device = resolve_device(device)
+        edges_np = np.asarray(edges.cpu() if isinstance(edges, torch.Tensor) else edges, np.int32)
+        if edge_weights is None:
+            edge_weights = np.where(edges_np >= 0, 1.0, 0.0).astype(np.float32)
+        if clusters is None:
+            clusters = compute_clusters(edges_np)
+        return cls.create(
+            nodes,
+            edges=torch.as_tensor(edges_np, device=device),
+            edge_weights=torch.as_tensor(edge_weights, dtype=torch.float32, device=device),
+            clusters=torch.as_tensor(clusters, dtype=torch.int32, device=device),
+            device=device,
+            **kwargs,
+        )
+
+
+def compute_clusters(edges: np.ndarray) -> np.ndarray:
+    """Connected-component label int32[N] of each node over -1-padded
+    neighbor lists: host-side union-find, the smaller root wins, labels
+    numbered in root order."""
+    n = edges.shape[0]
+    parent = np.arange(n)
+
+    def find(i):
+        root = i
+        while parent[root] != root:
+            root = parent[root]
+        while parent[i] != root:
+            parent[i], i = root, parent[i]
+        return root
+
+    for i in range(n):
+        for j in edges[i]:
+            if j >= 0:
+                ri, rj = find(i), find(int(j))
+                if ri != rj:
+                    parent[max(ri, rj)] = min(ri, rj)
+    roots = np.array([find(i) for i in range(n)], np.int64)
+    _, labels = np.unique(roots, return_inverse=True)
+    return labels.reshape(-1).astype(np.int32)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,7 +1,5 @@
 """Deformation-graph construction from meshes (host-side numpy, runs once
-per graph build). Port of the functions of
-``dynamicfuion_python_tpu/ops/graph_construction.py`` that the
-``FIRST_FRAME_EXTRACTED_MESH`` and ``FIRST_FRAME_DEPTH_IMAGE`` graph modes use:
+per graph build). Port of ``dynamicfuion_python_tpu/ops/graph_construction.py``:
 
   - mesh from a depth image: each pixel square becomes up to two triangles
     whose edges are all shorter than a limit;
@@ -10,10 +8,16 @@ per graph build). Port of the functions of
     faces;
   - node sampling: greedy Poisson-disk, accept a vertex as node iff no
     previously accepted node lies within ``node_coverage``;
+  - geodesic node edges: per node, the first ``max_neighbor_count`` other
+    nodes in ascending shortest-path distance over the mesh, Gaussian
+    weights normalized per node, reach limited to 2 * node_coverage;
+  - geodesic vertex anchors, node/edge cleanup and anchor renumbering;
+  - Euclidean KNN node edges and shortest-path pixel anchors (scipy's
+    KD-tree and Dijkstra, as in the JAX package).
 
-and the two the neural tracking prior uses: Euclidean KNN node edges and
-shortest-path pixel anchors (scipy's KD-tree and Dijkstra, as in the JAX
-package).
+Everything stays in numpy on the host, never on a device: graph data is then
+the same on every machine, and no cell or grid index comes from a device's
+floating-point division.
 """
 
 from __future__ import annotations
@@ -195,3 +199,149 @@ def compute_edges_euclidean(
         edges = np.pad(edges, ((0, 0), (0, pad)), constant_values=-1)
         w = np.pad(w, ((0, 0), (0, pad)))
     return edges, w
+
+
+def _vertex_adjacency(vertex_count: int, triangles: np.ndarray):
+    """CSR adjacency of the mesh's vertices: (row starts i64[V + 1],
+    neighbors i64[2 * edges]), each row's neighbors in ascending order."""
+    faces = np.asarray(triangles, np.int64)
+    src = np.concatenate([faces[:, 0], faces[:, 0], faces[:, 1], faces[:, 1], faces[:, 2], faces[:, 2]])
+    dst = np.concatenate([faces[:, 1], faces[:, 2], faces[:, 0], faces[:, 2], faces[:, 0], faces[:, 1]])
+    pairs = np.unique(np.stack([src, dst], 1), axis=0)
+    counts = np.bincount(pairs[:, 0], minlength=vertex_count)
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    return starts, pairs[:, 1]
+
+
+def _edge_lengths(pts: np.ndarray, src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+    """f64 length of each directed mesh edge, computed once per undirected
+    edge as ``np.linalg.norm`` computes the length of one f32 vector,
+    ``sqrt(x.dot(x))``: the arithmetic of a vertex-by-vertex Dijkstra, bit
+    for bit (a vectorized norm sums the squares in another order and
+    differs in a few percent of the edges)."""
+    lo, hi = np.minimum(src, dst), np.maximum(src, dst)
+    keys = lo * len(pts) + hi
+    unique, inverse = np.unique(keys, return_inverse=True)
+    diffs = pts[unique // len(pts)] - pts[unique % len(pts)]
+    squared = np.fromiter((x.dot(x) for x in diffs), np.float32, count=len(unique))
+    return np.sqrt(squared).astype(np.float64)[inverse]
+
+
+def compute_edges_shortest_path(
+    vertex_positions: np.ndarray,
+    triangles: np.ndarray,
+    node_vertex_indices: np.ndarray,
+    max_neighbor_count: int,
+    node_coverage: float,
+    enforce_total_num_neighbors: bool = False,
+    vertex_mask: np.ndarray | None = None,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Geodesic node edges.
+
+    Per node, the mesh vertices in ascending (shortest-path distance, vertex
+    index) order, the order a vertex-by-vertex Dijkstra pops them in; the
+    first ``max_neighbor_count`` other nodes become its edges, with weights
+    exp(-d^2 / (2 coverage^2)) normalized per node (uniform when they sum to
+    0). Paths end at 2 * node_coverage unless
+    ``enforce_total_num_neighbors``; a vertex outside ``vertex_mask`` is
+    never entered. The distances are scipy's Dijkstra over the f64 edge
+    lengths of :func:`_edge_lengths`.
+
+    Returns (edges i32[N, K] -1-padded, weights f32[N, K], distances
+    f32[N, K], node-to-vertex distances f32[N, V]: each vertex popped before
+    the K-th edge was found, inf elsewhere).
+    """
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import dijkstra
+
+    pts = np.asarray(vertex_positions, np.float32)
+    v = len(pts)
+    node_vertex_indices = np.asarray(node_vertex_indices, np.int64)
+    n = len(node_vertex_indices)
+    k = max_neighbor_count
+    starts, nbrs = _vertex_adjacency(v, triangles)
+    src = np.repeat(np.arange(v), np.diff(starts))
+    keep = np.ones(len(nbrs), bool) if vertex_mask is None else np.asarray(vertex_mask, bool)[nbrs]
+    src, dst = src[keep], nbrs[keep]
+    graph = csr_matrix((_edge_lengths(pts, src, dst), (src, dst)), shape=(v, v))
+    vertex_to_node = np.full(v, -1, np.int64)
+    vertex_to_node[node_vertex_indices] = np.arange(n)
+    max_influence = 2.0 * node_coverage
+    sigma_sq2 = 2.0 * node_coverage * node_coverage
+
+    edges = np.full((n, k), -1, np.int32)
+    weights = np.zeros((n, k), np.float32)
+    distances = np.zeros((n, k), np.float32)
+    n2v = np.full((n, v), np.inf, np.float32)
+    sources = np.nonzero(node_vertex_indices >= 0)[0]
+    if len(sources) == 0 or v == 0:
+        return edges, weights, distances, n2v
+    limit = np.inf if enforce_total_num_neighbors else max_influence
+    all_dist = dijkstra(graph, directed=True, indices=node_vertex_indices[sources], limit=limit)
+    for row, ni in enumerate(sources.tolist()):
+        d = all_dist[row]
+        reached = np.nonzero(np.isfinite(d) & ((d <= max_influence) | enforce_total_num_neighbors))[0]
+        order = reached[np.lexsort((reached, d[reached]))]
+        node_ids = vertex_to_node[order]
+        hits = np.nonzero((node_ids >= 0) & (node_ids != ni))[0][:k]
+        popped = order[: hits[-1]] if len(hits) == k else order
+        n2v[ni, popped] = d[popped]
+        found_d = [float(x) for x in d[order[hits]]]
+        edges[ni, : len(hits)] = node_ids[hits]
+        distances[ni, : len(hits)] = found_d
+        raw_w = [np.exp(-dd * dd / sigma_sq2) for dd in found_d]
+        if raw_w:
+            s = sum(raw_w)
+            norm = s if s > 0 else len(raw_w)
+            weights[ni, : len(raw_w)] = np.asarray(raw_w, np.float32) / norm
+    return edges, weights, distances, n2v
+
+
+def compute_anchors_shortest_path(
+    node_to_vertex_distances: np.ndarray,
+    node_coverage: float,
+    anchor_count: int,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Geodesic vertex anchors from the N x V distance matrix: per vertex
+    the K nodes with the smallest distance (inf: unreached, -1), weights
+    exp(-d^2 / (2 coverage^2)) normalized (uniform over the anchors when they
+    sum to 0). Returns (anchors i32[V, K], weights f32[V, K])."""
+    d = np.asarray(node_to_vertex_distances)  # [N, V]
+    n, _ = d.shape
+    k = min(anchor_count, n)
+    order = np.argsort(d, axis=0, kind="stable")[:k]  # [K, V]
+    dist = np.take_along_axis(d, order, axis=0)
+    valid = np.isfinite(dist)
+    anchors = np.where(valid, order, -1).T.astype(np.int32)
+    w = np.where(valid, np.exp(-(dist**2) / (2.0 * node_coverage**2)), 0.0).T.astype(np.float32)
+    sums = w.sum(1, keepdims=True)
+    counts = np.maximum((anchors >= 0).sum(1, keepdims=True), 1)
+    w = np.where(sums > 0, w / np.maximum(sums, 1e-30), np.where(anchors >= 0, 1.0 / counts, 0.0))
+    return anchors, w.astype(np.float32)
+
+
+def node_and_edge_cleanup(edges: np.ndarray, min_neighbors: int = 2):
+    """Iteratively mark nodes with fewer than ``min_neighbors`` neighbors
+    invalid and remove the edges to them. Returns (valid bool[N], the
+    cleaned edges)."""
+    edges = np.asarray(edges).copy()
+    valid = np.ones(edges.shape[0], bool)
+    while True:
+        kill = valid & ((edges >= 0).sum(1) < min_neighbors)
+        if not kill.any():
+            return valid, edges
+        valid[kill] = False
+        edges[np.isin(edges, np.nonzero(kill)[0])] = -1
+        edges[kill] = -1
+
+
+def update_pixel_anchors(node_id_mapping: np.ndarray, pixel_anchors: np.ndarray) -> np.ndarray:
+    """Renumber a pixel-anchor image after node removal: ``node_id_mapping[i]``
+    is the new index of old node ``i`` (-1: removed); anchors of removed
+    nodes become -1."""
+    mapping = np.asarray(node_id_mapping, np.int32)
+    anchors = np.asarray(pixel_anchors, np.int32)
+    out = np.full_like(anchors, -1)
+    present = anchors >= 0
+    out[present] = mapping[anchors[present]]
+    return out

@@ -46,6 +46,12 @@ def _materialize_metrics(frames: list) -> list:
     return [to_py(entry) for entry in frames]
 
 
+def write_ply_mesh(path: str | Path, vertices, faces) -> None:
+    """Write an indexed mesh, vertices f32[V, 3] and faces i32[F, 3], as a
+    binary-little-endian PLY."""
+    _write_ply(path, _np(vertices).astype(np.float32), _np(faces).astype(np.int32))
+
+
 def write_ply_triangle_soup(path: str | Path, triangles) -> None:
     """Write a triangle soup f32[T, 3, 3] as a binary-little-endian PLY."""
     tris = _np(triangles).astype(np.float32)
@@ -92,13 +98,49 @@ def write_png(path: str | Path, image) -> None:
         f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header) + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
 
 
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # grey, RGB, grey + alpha, RGBA
+
+
+def _unfilter(filtered: np.ndarray, filters: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo the PNG row filters (0 none, 1 sub, 2 up, 3 average, 4 Paeth) of
+    the bytes ``filtered`` uint8[H, stride]; ``bpp`` bytes per pixel.
+
+    A byte depends on its left, upper and upper-left neighbors, so the
+    bytes of one anti-diagonal (row + pixel column constant) are
+    independent: the loop runs over the H + W - 1 anti-diagonals, each step
+    vectorized over rows and the bytes of a pixel."""
+    h, stride = filtered.shape
+    if not filters.any():
+        return filtered
+    if filters.max() > 4:
+        raise ValueError(f"PNG row filter {int(filters.max())} does not exist")
+    wpix = stride // bpp
+    f = filtered.reshape(h, wpix, bpp).astype(np.int32)
+    out = np.zeros((h + 1, wpix + 1, bpp), np.int32)  # a zero row above and a zero column left
+    rows_all = np.arange(h)
+    for diag in range(h + wpix - 1):
+        r = rows_all[max(0, diag - wpix + 1) : min(h, diag + 1)]
+        p = diag - r
+        a = out[r + 1, p]  # left
+        b = out[r, p + 1]  # up
+        c = out[r, p]  # upper left
+        kind = filters[r][:, None]
+        pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        pred = np.select([kind == 1, kind == 2, kind == 3, kind == 4], [a, b, (a + b) >> 1, paeth], 0)
+        out[r + 1, p + 1] = (f[r, p] + pred) & 0xFF
+    return out[1:, 1:].astype(np.uint8).reshape(h, stride)
+
+
 def read_png(path: str | Path) -> np.ndarray:
-    """Read a PNG as :func:`write_png` writes it (8-bit RGB, 8- or 16-bit
-    grey, filter 0 on every row); raises on anything else."""
+    """Read a non-interlaced 8- or 16-bit PNG: grey -> [H, W], RGB ->
+    [H, W, 3], grey + alpha -> [H, W, 2], RGBA -> [H, W, 4], as uint8 or
+    uint16; every row filter. Raises on palette images, bit depths below 8
+    and interlacing."""
     data = Path(path).read_bytes()
     if data[:8] != b"\x89PNG\r\n\x1a\n":
         raise ValueError(f"{path}: not a PNG")
-    pos, idat, header = 8, b"", None
+    pos, idat, header = 8, [], None
     while pos < len(data):
         (length,) = struct.unpack(">I", data[pos : pos + 4])
         tag, payload = data[pos + 4 : pos + 8], data[pos + 8 : pos + 8 + length]
@@ -107,16 +149,23 @@ def read_png(path: str | Path) -> np.ndarray:
         if tag == b"IHDR":
             header = struct.unpack(">IIBBBBB", payload)
         elif tag == b"IDAT":
-            idat += payload
+            idat.append(payload)
+        elif tag == b"IEND":
+            break
         pos += 12 + length
-    w, h, bit_depth, color_type = header[:4]
-    channels = {0: 1, 2: 3}[color_type]
+    w, h, bit_depth, color_type, _, _, interlace = header
+    if color_type not in _PNG_CHANNELS or bit_depth not in (8, 16) or interlace:
+        raise ValueError(
+            f"{path}: color type {color_type}, bit depth {bit_depth}, interlace {interlace} is not read here "
+            "(8- or 16-bit grey, grey + alpha, RGB or RGBA, not interlaced)"
+        )
+    channels = _PNG_CHANNELS[color_type]
     dtype = np.dtype(">u2") if bit_depth == 16 else np.dtype(np.uint8)
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * channels * dtype.itemsize)
-    if rows[:, 0].any():
-        raise ValueError(f"{path}: a row filter other than 0")
-    image = rows[:, 1:].copy().view(dtype).astype(dtype.newbyteorder("="))
-    return image.reshape(h, w, channels) if channels == 3 else image.reshape(h, w)
+    bpp = channels * dtype.itemsize
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)[: h * (1 + w * bpp)].reshape(h, 1 + w * bpp)
+    raw = _unfilter(rows[:, 1:], rows[:, 0], bpp)
+    image = np.ascontiguousarray(raw).view(dtype).astype(dtype.newbyteorder("="))
+    return image.reshape(h, w, channels) if channels > 1 else image.reshape(h, w)
 
 
 def read_ply(path: str | Path) -> tuple[np.ndarray, np.ndarray]:

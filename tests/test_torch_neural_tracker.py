@@ -197,7 +197,8 @@ def test_deform_net_refuses_sizes_off_64(deform_pair):
 def test_checkpoint_files_load_in_both_packages(deform_pair, tmp_path):
     """A seeded state_dict written as .pt, as {"state_dict": ...} .pth and as
     .npz: the port loads it with load_state_dict's names, the JAX package
-    converts it, and the two flow nets give equal flows."""
+    converts it, and the two flow nets give equal flows. A Flax msgpack file
+    of the JAX weights loads with exactly Flax's weights."""
     from dynamicfuion_python_tpu.models.torch_weight_conversion import convert_deform_net_checkpoint
 
     inputs, params, _, _ = deform_pair
@@ -229,8 +230,17 @@ def test_checkpoint_files_load_in_both_packages(deform_pair, tmp_path):
     torch.save({**state, "flow_net.stray.weight": torch.zeros(1)}, tmp_path / "stray.pt")
     with pytest.raises(ValueError, match="unexpected"):
         load_deform_net_checkpoint(PD.DeformNet(), tmp_path / "stray.pt")
-    with pytest.raises(NotImplementedError, match="msgpack"):
-        load_deform_net_checkpoint(PD.DeformNet(), tmp_path / "model.msgpack")
+    # a Flax msgpack parameter file loads with Flax's weights
+    import flax.serialization
+
+    (tmp_path / "model.msgpack").write_bytes(flax.serialization.msgpack_serialize(jax.tree_util.tree_map(np.asarray, params)))
+    pnet = PD.DeformNet(use_mask=True, num_nodes=9)
+    load_deform_net_checkpoint(pnet, tmp_path / "model.msgpack")
+    restored = flax.serialization.msgpack_restore((tmp_path / "model.msgpack").read_bytes())
+    want = deform_net_state_from_jax(jax.tree_util.tree_map(np.asarray, restored))
+    assert set(want) == set(pnet.state_dict())
+    for name, value in want.items():
+        assert torch.equal(pnet.state_dict()[name], value), name
 
 
 # -- the point-cloud GN solver (tests/test_neural_tracker.py::TestGnOptimizer)

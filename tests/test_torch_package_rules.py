@@ -92,8 +92,29 @@ def test_unported_options_are_refused(tmp_path):
                      "fusion.tracking_span_mode=KEYFRAME_TO_CURRENT", "alignment.data_term_impl=fast",
                      "alignment.data_term_impl=autodiff", "fusion.pixel_anchor_computation_mode=SHORTEST_PATH"):
         FusionPipeline(apply_overrides(Parameters(), [override]), k, device="cpu")
-    with pytest.raises(NotImplementedError, match="msgpack"):
-        _load_prior_network(str(tmp_path / "deform_net.msgpack"), 4, "cpu")
+    # a Flax msgpack prior checkpoint loads (the JAX DeformNet's parameter
+    # tree; here seeded weights under their Flax paths), equal to Flax's
+    import flax.serialization
+
+    from dynamicfuion_python_tpu_torch.models.deform_net import DeformNet, seeded_state_dict
+    from dynamicfuion_python_tpu_torch.models.torch_weight_conversion import LAYERS
+    from dynamicfuion_python_tpu_torch.utils.state_conversion import deform_net_state_from_jax
+
+    state = seeded_state_dict(DeformNet(), torch.Generator().manual_seed(4))
+    tree: dict = {}
+    for name, path, transposed in LAYERS:
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        weight = state[f"{name}.weight"].numpy()
+        node["kernel"] = np.ascontiguousarray(
+            weight[:, :, ::-1, ::-1].transpose(2, 3, 0, 1) if transposed else weight.transpose(2, 3, 1, 0))
+        node["bias"] = state[f"{name}.bias"].numpy()
+    (tmp_path / "deform_net.msgpack").write_bytes(flax.serialization.msgpack_serialize({"params": tree}))
+    net = _load_prior_network(str(tmp_path / "deform_net.msgpack"), 4, "cpu")
+    want = deform_net_state_from_jax(flax.serialization.msgpack_restore((tmp_path / "deform_net.msgpack").read_bytes()))
+    for name, value in net.state_dict().items():
+        assert torch.equal(value, want[name]) and torch.equal(value, state[name]), name
     pipe = FusionPipeline(Parameters(), k, device="cpu")  # the default configuration runs
     with pytest.raises(NotImplementedError, match="A17"):
         pipe.enable_spmd(None)
@@ -147,3 +168,60 @@ def test_settings_match_the_jax_package():
     assert p_dict(p_apply(PParams(), overrides)) == j_dict(j_apply(JParams(), overrides))
     with pytest.raises(KeyError):
         p_apply(PParams(), ["tsdf.no_such_key=1"])
+
+
+BLOCKED = ("PIL", "msgpack", "yaml", "optax", "orbax", "flax", "jax", "cv2")
+_BLOCKER = '''
+import importlib, importlib.abc, pkgutil, sys
+BLOCKED = {blocked!r}
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"{{name}} is not installed on the card machine")
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+sys.path.insert(0, {root!r})
+import torch
+torch.set_num_threads(2)
+import dynamicfuion_python_tpu_torch
+modules = [m.name for m in pkgutil.walk_packages(dynamicfuion_python_tpu_torch.__path__, "dynamicfuion_python_tpu_torch.")]
+for name in modules:
+    importlib.import_module(name)
+import chip_smoke  # noqa: F401  (its phases import the port only)
+
+from pathlib import Path
+from dynamicfuion_python_tpu_torch.apps import create_graph_data, evaluate, generate, train
+from dynamicfuion_python_tpu_torch.data.synthetic_pairs import write_split
+from dynamicfuion_python_tpu_torch.settings import TrainingConfig
+
+root = Path({tmp!r})
+for seq in write_split(root / "train", (64, 128), pairs=((0, 1),)):
+    create_graph_data.main([str(seq), "--node-coverage", "0.08", "--frames", "0", "--labels", str(root / "train.json")])
+_, history = train.train(str(root), stage="1_solver", labeled=True, image_size=(64, 128), batch_size=1, iterations=1,
+                         max_nodes=32, eval_every=1, checkpoint_dir=str(root / "ckpt"), device="cpu",
+                         training_config=TrainingConfig(shuffle=False))
+generate.generate(str(root), out_dir=str(root / "pred"), checkpoint_dir=str(root / "ckpt"), labels_filename="train",
+                  image_size=(64, 128), max_nodes=32, device="cpu")
+metrics = evaluate.evaluate(str(root), predictions_dir=str(root / "pred"), labels_filename="train",
+                            image_size=(64, 128), max_nodes=32)
+assert metrics["pair_count"] == 2 and metrics["epe_3d"] is not None, metrics
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("IMPORT_BLOCKER_OK", len(modules), history)
+'''
+
+
+def test_port_runs_without_the_packages_the_card_lacks(tmp_path):
+    """The card machine has torch, numpy, scipy, einops and the standard
+    library: with PIL, msgpack, yaml, optax, orbax, flax, jax and cv2
+    refused at import, every port module and chip_smoke.py import, and a
+    one-step CPU train() + generate + evaluate runs on a PNG split."""
+    code = _BLOCKER.format(blocked=BLOCKED, root=str(ROOT), tmp=str(tmp_path))
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True, text=True, timeout=300,
+                         env={**__import__("os").environ, "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "IMPORT_BLOCKER_OK" in out.stdout
