@@ -86,10 +86,34 @@ non-zero, on any failure):
      gated: step, forward and backward ms (CUDA events), data seconds per
      batch, peak memory, the GN's share of the backward, one traced step
      and the same step with TF32 left on (a control).
-Phases 2 and 8-14 each set the kernels' launch counts to 0 before they drive
-their path and read them after: every kernel of a path must have launched in
-it (phase 13's path runs B2 only: its splat is plain PyTorch; phase 14's
-runs neither, training rasterizes nothing). Each phase prints a start line
+ 15. sod: apps/sod.py's generate_masks with the reference's default model
+     (U2NET at full width, seeded weights, 320x320 input) over four 480x640
+     PNG colour frames in a temporary directory, TF32 turned on globally
+     beforehand: every mask written as uint8 480x640, forward hooks reading
+     TF32 off for cuBLAS and cuDNN in every card forward, the fused output
+     on the card equal to the CPU's within 1e-4, the weights through a Flax
+     .npz and back bit for bit; ms per frame, the forward's event ms, peak
+     memory;
+ 16. leaf ops: on the main path's last 480x640 point cloud and its last
+     arrowhead system, card against CPU: mean / median grid sampling at the
+     node coverage and the voxel size (counts and indices equal, means
+     within 1e-6), the block-COO products (the system times its gradient,
+     and B^T B on the corner's pattern) within 1e-5 of their scale, and
+     point-to-plane distances within 1e-6; ms for each;
+ 17. spmd: two ranks spawned on the one card (gloo on CUDA tensors, a
+     FileStore rendezvous in a temporary directory, a deadline): first the
+     data term and one GN step on phase 7's fixed inputs against one
+     process (H and g within phase 7's bounds, translations within 1e-5);
+     then enable_spmd on the main path's slice for 3 fitted frames against
+     the single-process port run three times (their spread printed): node
+     translations within 1e-3 m of the first run, every solve
+     valid, the data loss falling and the occupied blocks equal each frame,
+     both kernels launched in both ranks; frame wall time for 1 and 2 ranks.
+Phases 2, 8-15 and 17 each set the kernels' launch counts to 0 before they
+drive their path and read them after: every kernel of a path must have
+launched in it (phase 13's path runs B2 only: its splat is plain PyTorch;
+phase 14's runs neither, training rasterizes nothing, nor do phases 15 and
+16: SOD and the leaf ops rasterize nothing either). Each phase prints a start line
 first. The kernels line (phase 3's measurements, each path's launch counts
 and the new shapes' times) comes next, and the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -323,10 +347,14 @@ def phase_main_path():
     # call and rasterize_binned's B1 call; the odometry's calls (counted per
     # frame) and last depth pair, for phase 4; the data term's first inputs
     # (frame 1, from the identity warp), for phase 7
+    # the first GN step's inputs and the last solve's arrowhead system, for
+    # phases 16 and 17
     last = {"mesh_expand": LastCall(fitter, "expand_project_faces"),
             "rasterize_tiles": LastCall(rasterize, "rasterize_tiles"),
             "odometry": LastCall(rigid_odometry, "rigid_odometry_multi_scale"),
-            "data_term": LastCall(fitter._DATA_TERMS, "face", keep_first=True)}
+            "data_term": LastCall(fitter._DATA_TERMS, "face", keep_first=True),
+            "gn_step": LastCall(fitter, "gauss_newton_step", keep_first=True),
+            "arrowhead": LastCall(fitter, "solve_block_sparse_arrowhead")}
     native.reset_launch_counts()
     pipe = FusionPipeline(params, seq.intrinsics)  # the default device: the card
     t0 = time.perf_counter()
@@ -1556,6 +1584,382 @@ def phase_train(smi: str) -> dict:
     return launches
 
 
+# salient-object detection: the reference's default model (U2NET, full
+# width) on seeded weights, at its 320x320 input, over 480x640 colour frames
+SOD_FRAMES = 4
+SOD_FRAME_SIZE = (480, 640)
+# the SPMD frame loop: two ranks on the one card (gloo on CUDA tensors), the
+# main path's slice for 3 fitted frames; a hung rank fails the phase
+SPMD_RANKS = 2
+SPMD_FITTED_FRAMES = 3
+SPMD_TIMEOUT_S = 420.0
+# the two-rank loop's node translations against the first single-process
+# run, within 1e-3 m (a quarter of a voxel). The card's float atomics make
+# every run differ and the fit grows it frame by frame: in four runs on an
+# NVIDIA H100 80GB HBM3 (700 W) the single process's runs sat
+# 2.1e-5-1.08e-4 m apart and the two ranks 5.3e-5-1.82e-4 m from one of
+# them, past 3x the runs' own spread in two of the four. So the spread (the
+# largest distance between two of SPMD_SINGLE_RUNS runs) is printed beside
+# the bound and does not set it. The fixed-input step (the same inputs on
+# both sides, no frame feedback) is held to 1e-5, and the CPU tests hold
+# the loop bit for bit
+SPMD_SINGLE_RUNS = 3
+SPMD_LOOP_TOL = 1e-3
+
+
+def _sod_frames(folder: Path, count: int, size) -> None:
+    """``count`` PNG colour frames: a warm disc sliding over a cool noisy
+    background."""
+    import numpy as np
+
+    from dynamicfuion_python_tpu_torch.utils.telemetry import write_png
+
+    folder.mkdir(parents=True)
+    rng = np.random.default_rng(15)
+    h, w = size
+    v, u = np.mgrid[0:h, 0:w]
+    for i in range(count):
+        disc = ((u - w / 2 - 30 * i) ** 2 + (v - h / 2) ** 2 < (h / 4) ** 2)[..., None]
+        img = np.where(disc, [210, 90, 50], [40, 100, 170]) + rng.integers(0, 30, size=(h, w, 3))
+        write_png(folder / f"{i:06d}.png", np.clip(img, 0, 255).astype(np.uint8))
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    """Nested dict -> {"a/b/c": leaf}, as flax.traverse_util flattens."""
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out.update(_flatten(value, f"{prefix}{key}/"))
+        else:
+            out[f"{prefix}{key}"] = value
+    return out
+
+
+def phase_sod() -> dict:
+    """generate_masks with the full U2NET over 480x640 PNG frames; the card's
+    fused output against the CPU's; the weights through an .npz and back."""
+    import numpy as np
+    import torch
+
+    from dynamicfuion_python_tpu_torch.apps import sod
+    from dynamicfuion_python_tpu_torch.apps.profile_frame import use_fp32_matmuls
+    from dynamicfuion_python_tpu_torch.apps.train import fp32_step
+    from dynamicfuion_python_tpu_torch.models.torch_weight_conversion import (
+        load_u2net_checkpoint,
+        u2net_flax_from_state_dict,
+    )
+    from dynamicfuion_python_tpu_torch.models.u2net import U2Net, U2NetFull
+    from dynamicfuion_python_tpu_torch.ops import native
+    from dynamicfuion_python_tpu_torch.utils.telemetry import read_png
+
+    flags, marks, starts = [], [], []
+
+    def before(module, args):
+        if isinstance(module, U2Net) and args[0].is_cuda:
+            flags.append((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32))
+            marks.append([torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)])
+            marks[-1][0].record()
+
+    def after(module, args, output):
+        if isinstance(module, U2Net) and args[0].is_cuda:
+            marks[-1][1].record()
+
+    load_color = sod.load_color
+
+    def timed_load(path):  # each frame starts with its read
+        torch.cuda.synchronize()
+        starts.append(time.perf_counter())
+        return load_color(path)
+
+    hooks = [torch.nn.modules.module.register_module_forward_pre_hook(before),
+             torch.nn.modules.module.register_module_forward_hook(after)]
+    sod.load_color = timed_load
+    # TF32 on globally: generate_masks must turn it off around its forward
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            _sod_frames(tmp / "color", SOD_FRAMES, SOD_FRAME_SIZE)
+            native.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            written = sod.generate_masks(tmp / "color", tmp / "sod", full_model=True)
+            torch.cuda.synchronize()
+            starts.append(time.perf_counter())
+            wall = starts[-1] - t0
+            launches = dict(native.launch_counts)
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            masks = [read_png(p) for p in written]
+            sod.load_color = load_color
+            use_fp32_matmuls()
+            # the card's fused output against the CPU's on the first frame
+            x = sod.preprocess(load_color(tmp / "color" / "000000.png"), (320, 320))
+            card, cpu = sod.build_model(full_model=True), sod.build_model(full_model=True, device="cpu")
+            with torch.no_grad(), fp32_step():
+                fused_card = card(torch.as_tensor(x, device="cuda"))[0].cpu()
+            with torch.no_grad():
+                fused_cpu = cpu(torch.as_tensor(x))[0]
+            err = float((fused_card - fused_cpu).abs().max())
+            # the weights as Flax variables in an .npz, and back
+            state = {k: v.cpu() for k, v in card.state_dict().items()}
+            np.savez(tmp / "u2net.npz", **_flatten(u2net_flax_from_state_dict(state)))
+            back = U2NetFull()
+            load_u2net_checkpoint(back, tmp / "u2net.npz")
+            round_trip = all(torch.equal(v, state[k]) for k, v in back.state_dict().items())
+    finally:
+        sod.load_color = load_color
+        for h in hooks:
+            h.remove()
+        use_fp32_matmuls()
+    torch.cuda.synchronize()
+    forward_ms = [a.elapsed_time(b) for a, b in marks]
+    frame_ms = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+    row = {
+        "phase": "sod", "model": "U2NET", "frames": len(written), "frame_size": list(SOD_FRAME_SIZE),
+        "input_size": [320, 320], "parameters": sum(v.numel() for v in state.values()),
+        "wall_s": wall, "frame_ms": frame_ms, "steady_frame_ms": float(np.median(frame_ms[1:])),
+        "forward_event_ms": forward_ms[:SOD_FRAMES], "steady_forward_event_ms": float(np.median(forward_ms[1:SOD_FRAMES])),
+        "fused_card_vs_cpu": err, "tf32_flags_in_forward": sorted(set(flags)), "npz_round_trip": round_trip,
+        "launches": launches, "peak_mem_mib": peak,
+        "mask_mean_grey": [float(m.mean()) for m in masks],
+    }
+    emit(row)
+    check(len(masks) == SOD_FRAMES and all(m.dtype == np.uint8 and m.shape == SOD_FRAME_SIZE for m in masks),
+          f"sod: masks {[(m.dtype, m.shape) for m in masks]}")
+    check(all(m.max() > m.min() for m in masks), "sod: a constant mask")
+    check(set(flags) == {(False, False)}, f"sod: the card's forward ran with TF32 flags {sorted(set(flags))}")
+    check(err <= 1e-4, f"sod: fused output differs card vs CPU by {err}")
+    check(round_trip, "sod: the weights changed through the .npz")
+    return launches
+
+
+def phase_leaf_ops(odometry_call, arrowhead_call, params) -> dict:
+    """Grid sampling on the main path's last point cloud, the block-COO
+    products on its last arrowhead system and point-to-plane distances, card
+    against CPU."""
+    import numpy as np
+    import torch
+
+    from dynamicfuion_python_tpu_torch.ops import native, sampling
+    from dynamicfuion_python_tpu_torch.ops.camera import unproject_depth_image
+    from dynamicfuion_python_tpu_torch.ops.distances import point_to_plane_distances
+    from dynamicfuion_python_tpu_torch.ops.linalg import (
+        arrowhead_matvec,
+        matmul_block_sparse,
+        matmul_block_sparse_dense,
+    )
+    from dynamicfuion_python_tpu_torch.ops.normals import point_image_normals
+
+    native.reset_launch_counts()
+    prev, cur, intr = odometry_call.args
+    f = params.fusion
+    points, mask = unproject_depth_image(cur, intr, f.depth_scale, f.far_clip_distance)
+    prev_points, _ = unproject_depth_image(prev, intr, f.depth_scale, f.far_clip_distance)
+    cloud = points[mask].contiguous()
+    row = {"phase": "leaf_ops", "points": cloud.shape[0]}
+    for name, size in (("node_coverage", params.graph.node_coverage), ("voxel_size", params.tsdf.voxel_size)):
+        card_mean, card_n = sampling.mean_grid_downsample(cloud, size)
+        cpu_mean, cpu_n = sampling.mean_grid_downsample(cloud.cpu(), size)
+        card_idx, card_m = sampling.median_grid_subsample(cloud, size)
+        cpu_idx, cpu_m = sampling.median_grid_subsample(cloud.cpu(), size)
+        n = int(cpu_n)
+        mean_err = float((card_mean[:n].cpu() - cpu_mean[:n]).abs().max()) if int(card_n) == n else None
+        row[name] = {
+            "cell": size, "cells": n, "counts_equal": int(card_n) == n and int(card_m) == int(cpu_m),
+            "indices_equal": bool(torch.equal(card_idx.cpu(), cpu_idx)), "mean_max_abs_err": mean_err,
+            "mean_ms": cuda_time_ms(lambda: sampling.mean_grid_downsample(cloud, size), 5, warmup=1),
+            "median_ms": cuda_time_ms(lambda: sampling.median_grid_subsample(cloud, size), 5, warmup=1),
+        }
+        check(row[name]["counts_equal"] and row[name]["indices_equal"] and mean_err <= 1e-6,
+              f"leaf ops: grid sampling at the {name} differs card vs CPU ({row[name]})")
+
+    # the arrowhead system as block-COO: stem diagonal, wings and their
+    # transposes, corner blocks; padded wing slots inactive (-1)
+    matrix, gradient = arrowhead_call.args[0], arrowhead_call.args[1]
+    stem, wing, cols, corner = matrix.diag_blocks, matrix.wing_blocks, matrix.wing_cols.long(), matrix.corner
+    n0, k = cols.shape
+    nc = corner.shape[0] // 6
+    rows = torch.arange(n0, device=cols.device)[:, None].expand(n0, k)
+    active = cols >= 0
+    wing_coords = torch.stack([torch.where(active, rows, -1), torch.where(active, n0 + cols, -1)], -1).reshape(-1, 2)
+    ci = torch.arange(nc, device=cols.device)
+    corner_coords = torch.stack(torch.meshgrid(n0 + ci, n0 + ci, indexing="ij"), -1).reshape(-1, 2)
+    blocks = torch.cat([stem, wing.reshape(-1, 6, 6), wing.reshape(-1, 6, 6).mT,
+                        corner.reshape(nc, 6, nc, 6).permute(0, 2, 1, 3).reshape(-1, 6, 6)])
+    coords = torch.cat([torch.arange(n0, device=cols.device)[:, None].expand(n0, 2), wing_coords,
+                        wing_coords.flip(1), corner_coords]).to(torch.int32)
+    nodes = n0 + nc
+    card = matmul_block_sparse_dense(blocks, coords, gradient, nodes)
+    cpu = matmul_block_sparse_dense(blocks.cpu(), coords.cpu(), gradient.cpu(), nodes)
+    scale = float(cpu.abs().max())
+    dense_err = float((card.cpu() - cpu).abs().max())
+    matvec_err = float((card - arrowhead_matvec(matrix, gradient)).abs().max())
+    # B^T B on the corner's pattern (the wing part of the Schur complement),
+    # over at most 2048 wing blocks: the product's cross join is Na x Nb
+    used = min(n0, max(1, 2048 // k))
+    wt = wing[:used].reshape(-1, 6, 6)
+    wc = wing_coords.reshape(n0, k, 2)[:used].reshape(-1, 2).to(torch.int32)
+    product = matmul_block_sparse(wt.mT, wc.flip(1), wt, wc, corner_coords.to(torch.int32))
+    product_cpu = matmul_block_sparse(wt.mT.cpu(), wc.flip(1).cpu(), wt.cpu(), wc.cpu(), corner_coords.to(torch.int32).cpu())
+    product_scale = float(product_cpu.abs().max())
+    product_err = float((product.cpu() - product_cpu).abs().max())
+    row["block_sparse"] = {
+        "nodes": nodes, "stem_blocks": n0, "wing_slots": n0 * k, "corner_blocks": nc * nc, "blocks": blocks.shape[0],
+        "dense_product_max_abs_err": dense_err, "dense_product_scale": scale, "vs_arrowhead_matvec": matvec_err,
+        "dense_ms": cuda_time_ms(lambda: matmul_block_sparse_dense(blocks, coords, gradient, nodes), 10),
+        "sparse_product_stem_rows": used, "sparse_product_pairs": wt.shape[0] ** 2,
+        "sparse_product_max_abs_err": product_err, "sparse_product_scale": product_scale,
+        "sparse_ms": cuda_time_ms(lambda: matmul_block_sparse(wt.mT, wc.flip(1), wt, wc, corner_coords.to(torch.int32)),
+                                  5, warmup=1),
+    }
+    check(dense_err <= 1e-5 * max(1.0, scale) and matvec_err <= 1e-5 * max(1.0, scale),
+          f"leaf ops: block-sparse x dense differs ({row['block_sparse']})")
+    check(product_err <= 1e-5 * max(1.0, product_scale), f"leaf ops: block-sparse product differs ({row['block_sparse']})")
+
+    normals = point_image_normals(points)
+    card_d = point_to_plane_distances(points, prev_points, normals)
+    cpu_d = point_to_plane_distances(points.cpu(), prev_points.cpu(), normals.cpu())
+    row["point_to_plane"] = {
+        "max_abs_err": float((card_d.cpu() - cpu_d).abs().max()),
+        "ms": cuda_time_ms(lambda: point_to_plane_distances(points, prev_points, normals), 20),
+    }
+    check(row["point_to_plane"]["max_abs_err"] <= 1e-6, f"leaf ops: distances differ ({row['point_to_plane']})")
+    launches = dict(native.launch_counts)
+    row["launches"] = launches
+    emit(row)
+    return launches
+
+
+def _spmd_frames(pipe, frames) -> list[dict]:
+    """Fuse ``frames`` and time each (host clock, synchronized)."""
+    import torch
+
+    rows = []
+    for f in frames:
+        t0 = time.perf_counter()
+        m = pipe.process_frame(f.depth, f.color)
+        torch.cuda.synchronize()
+        rows.append({"wall_s": time.perf_counter() - t0, "data_loss": m["data_loss"], "valid_solve": m["valid_solve"],
+                     "occupied_blocks": int(pipe.volume.occupied_count())})
+    return rows
+
+
+def _spmd_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of phase 17 (a spawned process): the data term and a GN step
+    on the fixed inputs, then the slice's frame loop under enable_spmd."""
+    import torch
+
+    from dynamicfuion_python_tpu_torch.apps.fusion_pipeline import FusionPipeline
+    from dynamicfuion_python_tpu_torch.apps.profile_frame import make_slice, use_fp32_matmuls
+    from dynamicfuion_python_tpu_torch.models import fitter
+    from dynamicfuion_python_tpu_torch.ops import native
+    from dynamicfuion_python_tpu_torch.parallel import distributed, spmd
+
+    tmp = Path(tmp)
+    use_fp32_matmuls()
+    dev = distributed.initialize(f"file://{tmp / 'store'}", world, rank, "gloo", device="cuda")
+    group = spmd.fusion_group()
+    fixed = torch.load(tmp / "fixed.pt", map_location=dev, weights_only=False)
+    out = {"device": str(dev)}
+    d = list(fixed["data_term"])
+    with torch.no_grad():
+        h, g, loss, covered, _ = fitter.data_normal_equations(
+            *d[:8], spmd.shard_pixel_rows(d[8], group), spmd.shard_pixel_rows(d[9], group), *d[10:], group
+        )
+        s = list(fixed["step"])
+        step = fitter.gauss_newton_step(
+            *s[:5], spmd.shard_pixel_rows(s[5], group), spmd.shard_pixel_rows(s[6], group), *s[7:], group=group
+        )
+    out["fixed"] = {"h": h.cpu(), "g": g.cpu(), "loss": float(loss), "covered": int(covered),
+                    "translations": step.field.node_translations.cpu()}
+    params, seq = make_slice(frame_count=SPMD_FITTED_FRAMES + 1)
+    frames = list(seq)
+    pipe = FusionPipeline(params, seq.intrinsics)  # this rank's card
+    pipe.initialize(frames[0].depth, frames[0].color)
+    pipe.enable_spmd(group)
+    native.reset_launch_counts()
+    out["frames"] = _spmd_frames(pipe, frames[1:])
+    out["launches"] = dict(native.launch_counts)
+    out["translations"] = pipe.warp_field.node_translations.cpu()
+    torch.save(out, tmp / f"rank{rank}.pt")
+
+
+def phase_spmd(step_call, data_term_call) -> dict:
+    """The SPMD frame loop in two ranks on the one card against the
+    single-process port; returns the kernels' launches summed over the
+    ranks."""
+    import numpy as np
+    import torch
+
+    from dynamicfuion_python_tpu_torch.apps.fusion_pipeline import FusionPipeline
+    from dynamicfuion_python_tpu_torch.apps.profile_frame import make_slice
+    from dynamicfuion_python_tpu_torch.models import fitter
+    from dynamicfuion_python_tpu_torch.parallel import run_ranks
+
+    # the single process on the card, run to run
+    params, seq = make_slice(frame_count=SPMD_FITTED_FRAMES + 1)
+    frames = list(seq)
+    single = []
+    for _ in range(SPMD_SINGLE_RUNS):
+        pipe = FusionPipeline(params, seq.intrinsics)
+        pipe.initialize(frames[0].depth, frames[0].color)
+        rows = _spmd_frames(pipe, frames[1:])
+        single.append((rows, pipe.warp_field.node_translations.cpu()))
+    pairs = [float((a[1] - b[1]).abs().max()) for i, a in enumerate(single) for b in single[i + 1:]]
+    spread = max(pairs)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        torch.save({"data_term": data_term_call.first_args, "step": step_call.first_args}, tmp / "fixed.pt")
+        t0 = time.perf_counter()
+        run_ranks(_spmd_rank, SPMD_RANKS, (str(tmp),), timeout_s=SPMD_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+        ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(SPMD_RANKS)]
+
+    # the fixed inputs (frame 1 from the identity warp): H / g as phase 7
+    # bounds them, translations within 1e-5
+    with torch.no_grad():
+        h1, g1, l1 = (x.cpu() for x in fitter._DATA_TERMS["face"](*data_term_call.first_args))
+        single_step = fitter.gauss_newton_step(*step_call.first_args)
+    h_atol, g_atol = 1e-5 * max(1.0, float(h1.abs().max())), 1e-5 * max(1.0, float(g1.abs().max()))
+    fixed = ranks[0]["fixed"]
+    step_err = float((fixed["translations"] - single_step.field.node_translations.cpu()).abs().max())
+    loop_err = float((ranks[0]["translations"] - single[0][1]).abs().max())
+    launches = {name: sum(r["launches"][name] for r in ranks) for name in ranks[0]["launches"]}
+    single_ms = [r["wall_s"] * 1e3 for rows, _ in single for r in rows[1:]]
+    rank_ms = [r["wall_s"] * 1e3 for r in ranks[0]["frames"][1:]]
+    row = {
+        "phase": "spmd", "ranks": SPMD_RANKS, "backend": "gloo", "devices": [r["device"] for r in ranks],
+        "fixed_inputs_sha1": tensor_digest(list(data_term_call.first_args)),
+        "fixed_h_max_abs_err": float((fixed["h"] - h1).abs().max()), "fixed_h_atol": h_atol,
+        "fixed_g_max_abs_err": float((fixed["g"] - g1).abs().max()), "fixed_g_atol": g_atol,
+        "fixed_loss_rel": abs(fixed["loss"] - float(l1)) / max(abs(float(l1)), 1e-30),
+        "fixed_step_translation_err": step_err,
+        "single_run_pair_distances": pairs, "single_run_spread": spread, "loop_tolerance": SPMD_LOOP_TOL,
+        "loop_translation_err": loop_err, "loop_err_over_spread": loop_err / max(spread, 1e-30),
+        "ranks_agree": bool(torch.equal(ranks[0]["translations"], ranks[1]["translations"])),
+        "frames": [{"rank": rf, "single": sf} for rf, sf in zip(ranks[0]["frames"], single[0][0])],
+        "launches_per_rank": [r["launches"] for r in ranks], "ranks_wall_s": ranks_s,
+        "steady_frame_ms_1_rank": float(np.median(single_ms)), "steady_frame_ms_2_ranks": float(np.median(rank_ms)),
+    }
+    emit(row)
+    check(violations(fixed["h"], h1, 1e-4, h_atol) == 0 and violations(fixed["g"], g1, 1e-4, g_atol) == 0,
+          "spmd: the two ranks' data term differs from one process's")
+    check(row["fixed_loss_rel"] <= 1e-5, f"spmd: data loss {fixed['loss']} against {float(l1)}")
+    check(step_err <= 1e-5, f"spmd: the fixed step's translations differ by {step_err}")
+    check(loop_err <= SPMD_LOOP_TOL, f"spmd: the loop's translations differ by {loop_err} > {SPMD_LOOP_TOL}")
+    check(row["ranks_agree"], "spmd: the ranks' warp fields differ")
+    for rf, sf in zip(ranks[0]["frames"], single[0][0]):
+        check(all(rf["valid_solve"]) and rf["data_loss"][-1] < rf["data_loss"][0],
+              f"spmd: a frame's solve was invalid or its loss did not fall ({rf})")
+        check(rf["occupied_blocks"] == sf["occupied_blocks"],
+              f"spmd: occupied blocks {rf['occupied_blocks']} against {sf['occupied_blocks']}")
+    for r in ranks:
+        for name in launches:
+            check(r["launches"][name] > 0, f"spmd: kernel {name} was not launched in a rank")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1583,6 +1987,9 @@ def main() -> int:
     readout_launches = run("volume_readout", phase_volume_readout, pipe)
     indexed_launches, b2_headline = run("indexed", phase_indexed)
     train_launches = run("train", phase_train, smi)
+    sod_launches = run("sod", phase_sod)
+    leaf_launches = run("leaf_ops", phase_leaf_ops, last["odometry"], last["arrowhead"], pipe.params)
+    spmd_launches = run("spmd", phase_spmd, last["gn_step"], last["data_term"])
     for k in kernels:
         for run_name, counts in prior_launches.items():
             k[f"launches_neural_prior_{run_name}"] = counts[k["name"]]
@@ -1593,6 +2000,9 @@ def main() -> int:
         k["launches_volume_readout"] = readout_launches[k["name"]]
         k["launches_indexed"] = indexed_launches[k["name"]]
         k["launches_train"] = train_launches[k["name"]]
+        k["launches_sod"] = sod_launches[k["name"]]
+        k["launches_leaf_ops"] = leaf_launches[k["name"]]
+        k["launches_spmd"] = spmd_launches[k["name"]]
     b1_row, b2_row = kernels
     b1_row["renderer_bin_capacity_1024"] = renderer["b1"]
     b2_row["indexed_4470784_faces"] = b2_headline

@@ -28,8 +28,11 @@ keyframe's valid pixels laid over it in the overlay mode; the rendered-mesh
 recorder (``telemetry.record_rendered_warped_mesh``) renders the same mesh
 after each frame. The prior's checkpoint is a reference ``.pt`` / ``.pth`` /
 ``.npz`` file, a training checkpoint of ``apps/train.py`` or a Flax msgpack
-parameter file. Not ported yet, and refused with ``NotImplementedError``:
-the SPMD frame loop (ROADMAP A17).
+parameter file.
+
+``enable_spmd(group)`` runs the frame loop over a ``torch.distributed``
+process group, every rank running the same program on the same frames (see
+its docstring for what each rank does and which collectives join them).
 
 Run:  python -m dynamicfuion_python_tpu_torch.apps.fusion_pipeline \\
           --sequence <dir>|synthetic [--frames N] [--size HxW] \\
@@ -75,6 +78,7 @@ from dynamicfuion_python_tpu_torch.ops.graph_construction import (
     vertex_erosion_mask,
 )
 from dynamicfuion_python_tpu_torch.ops.normals import point_image_normals
+from dynamicfuion_python_tpu_torch.parallel import spmd
 from dynamicfuion_python_tpu_torch.settings import (
     AnchorComputationMode,
     GraphGenerationMode,
@@ -149,6 +153,7 @@ class FusionPipeline:
         self.node_graph_edges: np.ndarray | None = None
         self._last_prior_arrays: dict = {}
         self.renderer: MeshRenderer | None = None  # built at first use, at the frame's size
+        self.spmd_group = None  # set by enable_spmd
         self.fitter_config = FitterConfig(
             max_iterations=a.max_iteration_count,
             min_update_threshold=a.min_update_threshold,
@@ -268,6 +273,9 @@ class FusionPipeline:
         verts, faces, v_count, t_count = extract_mesh_fitter_arrays(
             self.volume, v_max, t_max, self._extraction_weight_threshold()
         )
+        if self.spmd_group is not None:
+            # the canonical mesh is replicated: rank 0's
+            verts, faces, v_count, t_count = spmd.replicate([verts, faces, v_count, t_count], self.spmd_group)
         counts = (int(v_count), int(t_count))
         if sync:
             self._count_host = counts
@@ -447,8 +455,57 @@ class FusionPipeline:
             )
         return {"prior_valid": result.valid_solve, "prior_matches": int(torch.sum(result.correspondence_mask))}
 
-    def enable_spmd(self, mesh) -> None:
-        raise NotImplementedError("the SPMD frame loop is not ported yet (ROADMAP A17)")
+    def enable_spmd(self, group) -> None:
+        """Run the frame loop over ``group`` (``parallel.spmd.fusion_group``;
+        call it after ``initialize`` on every rank, each rank then
+        processing the same frames). Placement, by data axis:
+
+          - the observed frame's pixel rows split into one slab per rank:
+            odometry sums its per-pixel normal equations over the rank's
+            source rows and ``all_reduce``s them; the fit computes the data
+            term's rows for the rank's pixels and adds them onto the sums of
+            the ranks before it (a ``broadcast`` per rank, in rank order, so
+            the sums are one process's), the compaction cap staying the
+            whole frame's (every rank rasterizes the whole frame: B1 and B2
+            run on every rank);
+          - the TSDF block table splits by slot for integration: each rank
+            integrates its share of the frame's active blocks, then every
+            rank ``broadcast``s its updated blocks to the others;
+          - the warp field, intrinsics, pose and canonical mesh stay
+            replicated: rank 0's state is ``broadcast`` now, its update
+            after every GN step and its pose after odometry, so every rank
+            holds the same bits even where the card's atomics sum in a
+            different order on each;
+          - the mesh refresh reads the whole (replicated) table and gives
+            the replicated canonical mesh (rank 0's, broadcast);
+          - the neural prior, when on, runs whole on every rank and rank
+            0's field is broadcast.
+
+        The backend and device are those the caller initialized
+        (``parallel.distributed.initialize``); only ``all_reduce`` and
+        ``broadcast`` are used, which gloo offers on CUDA tensors too.
+        """
+        if group is None:
+            raise ValueError("enable_spmd needs a process group (parallel.spmd.fusion_group())")
+        if self.warp_field is None:
+            raise RuntimeError("call initialize before enable_spmd")
+        self.spmd_group = group
+        v = self.volume
+        keys, sorted_keys, slot_of_sorted, tsdf, weight, color = spmd.replicate(
+            [v.slot_keys, v.sorted_keys, v.slot_of_sorted, v.tsdf, v.weight, v.color], group
+        )
+        self.volume = v.replace(
+            slot_keys=keys, sorted_keys=sorted_keys, slot_of_sorted=slot_of_sorted, tsdf=tsdf, weight=weight,
+            color=color,
+        )
+        self.warp_field = spmd.replicate_field(self.warp_field, group)
+        if self.keyframe_rotations is not None:
+            self.keyframe_rotations, self.keyframe_translations = spmd.replicate(
+                [self.keyframe_rotations, self.keyframe_translations], group
+            )
+        self.extrinsics, self.canonical_vertices, self.canonical_triangles = spmd.replicate(
+            [self.extrinsics, self.canonical_vertices, self.canonical_triangles], group
+        )
 
     # -- subsequent frames ---------------------------------------------------
 
@@ -471,8 +528,11 @@ class FusionPipeline:
                 self.intrinsics,
                 depth_scale=p.fusion.depth_scale,
                 depth_max=p.fusion.far_clip_distance,
+                group=self.spmd_group,
             )
             self.extrinsics = delta @ self.extrinsics
+            if self.spmd_group is not None:
+                (self.extrinsics,) = spmd.replicate([self.extrinsics], self.spmd_group)
         self.previous_depth = depth_t
         pose = self.extrinsics if use_rigid else None
 
@@ -490,6 +550,11 @@ class FusionPipeline:
                 prior_metrics = {"prior_valid": False, "prior_matches": 0}
             else:
                 prior_metrics = self._apply_prior(depth_t, color, prior_flow)
+                if self.spmd_group is not None:
+                    self.warp_field = spmd.replicate_field(self.warp_field, self.spmd_group)
+        if self.spmd_group is not None:  # the fit reads this rank's rows
+            points = spmd.shard_pixel_rows(points, self.spmd_group)
+            mask = spmd.shard_pixel_rows(mask, self.spmd_group)
         self.warp_field, diagnostics = fit_to_image(
             self.warp_field,
             self.canonical_vertices,
@@ -499,6 +564,7 @@ class FusionPipeline:
             self.intrinsics,
             self.fitter_config,
             device=self.device,
+            group=self.spmd_group,
         )
         max_active = min(p.tsdf.max_active_blocks, self.volume.capacity)
         # a frame whose final GN iteration failed its valid-solve guard is
@@ -514,6 +580,7 @@ class FusionPipeline:
                 p.fusion.depth_scale,
                 p.fusion.far_clip_distance,
                 post_warp_extrinsics=pose,
+                group=self.spmd_group,
             )
         else:
             n_intersecting = torch.zeros((), dtype=torch.int64, device=self.device)
@@ -632,11 +699,14 @@ def volume_update(
     depth_scale: float,
     far_clip: float,
     post_warp_extrinsics=None,
+    group=None,
 ):
     """The per-frame TSDF update: block discovery, sleeve activation,
     re-discovery, active-list compaction, non-rigid integration (through the
     field, then the camera pose). Returns the new volume and the number of
-    intersecting blocks."""
+    intersecting blocks. With ``group`` each rank integrates its share of
+    the active blocks (a contiguous slot range of the ascending list) and
+    then ``broadcast``s them to the others."""
     intersecting = volume.find_blocks_intersecting_truncation_region(
         depth, field, intrinsics, post_warp_extrinsics=post_warp_extrinsics
     )
@@ -649,16 +719,37 @@ def volume_update(
         torch.arange(max_active, device=volume.device) < n_active
     )
     raw_points, _ = unproject_depth_image(depth, intrinsics, depth_scale, far_clip)
-    volume = volume.integrate_non_rigid(
-        active_slots,
-        active_valid,
-        field,
-        depth,
-        intrinsics,
-        color=(color.to(torch.float32) / 255.0) if color is not None else None,
-        normals=point_image_normals(raw_points),
-        post_warp_extrinsics=post_warp_extrinsics,
-    )
+    own_slots, own_valid = active_slots, active_valid
+    if group is not None:
+        n = int(torch.clamp(n_active, max=max_active))  # the list's length (one host sync)
+        start, stop = spmd.shard_blocks(n, group)
+        own_slots, own_valid = active_slots[start:stop], active_valid[start:stop]
+    if own_slots.shape[0]:
+        volume = volume.integrate_non_rigid(
+            own_slots,
+            own_valid,
+            field,
+            depth,
+            intrinsics,
+            color=(color.to(torch.float32) / 255.0) if color is not None else None,
+            normals=point_image_normals(raw_points),
+            post_warp_extrinsics=post_warp_extrinsics,
+        )
+    if group is not None and n:
+        # every rank's updated blocks to every rank, the list's rows split as
+        # the integration split them
+        slots = active_slots[:n]
+        r3 = volume.tsdf[0].numel()
+        packet = torch.cat(
+            [volume.tsdf[slots].reshape(n, -1), volume.weight[slots].reshape(n, -1),
+             volume.color[slots].reshape(n, -1)], dim=1,
+        )
+        packet = spmd.broadcast_slices(packet, group)
+        volume = volume.replace(
+            tsdf=volume.tsdf.index_copy(0, slots, packet[:, :r3].reshape(-1, *volume.tsdf.shape[1:])),
+            weight=volume.weight.index_copy(0, slots, packet[:, r3 : 2 * r3].reshape(-1, *volume.weight.shape[1:])),
+            color=volume.color.index_copy(0, slots, packet[:, 2 * r3 :].reshape(-1, *volume.color.shape[1:])),
+        )
     return volume, torch.sum(intersecting)
 
 

@@ -2,12 +2,13 @@
 
 PNG frames (8-bit colour, 16-bit depth, any row filter) are read by
 ``utils/telemetry.py::read_png``; a JPEG colour frame needs Pillow, imported
-only when one is read. The two resizes give Pillow's results:
+only when one is read. The three resizes give Pillow's results:
 :func:`resize_nearest` is ``Image.resize(..., NEAREST)`` bit for bit (8-,
-16-bit, 32-bit and float images), and
-:func:`resize_bilinear` is ``Image.resize(..., BILINEAR)`` on 8-bit images
-(a triangle filter widened by the reduction factor, fixed-point weights,
-the horizontal pass first).
+16-bit, 32-bit and float images), and :func:`resize_bilinear` /
+:func:`resize_bicubic` are ``Image.resize(..., BILINEAR / BICUBIC)`` on
+8-bit images (a triangle / Keys cubic filter widened by the reduction
+factor, fixed-point weights, the horizontal pass first, each pass clipped
+to 0..255).
 """
 
 from __future__ import annotations
@@ -90,12 +91,32 @@ def resize_nearest(image: np.ndarray, size_hw: tuple[int, int]) -> np.ndarray:
     return image[rows][:, cols]
 
 
-def _bilinear_coefficients(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
+def _triangle(x: float) -> float:
+    x = abs(x)
+    return 1.0 - x if x < 1.0 else 0.0
+
+
+def _cubic(x: float) -> float:
+    """Pillow's bicubic filter: Keys' cubic with a = -0.5, support 2."""
+    a = -0.5
+    x = abs(x)
+    if x < 1.0:
+        return ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    if x < 2.0:
+        return (((x - 5) * x + 8) * x - 4) * a
+    return 0.0
+
+
+_FILTERS = {"bilinear": (_triangle, 1.0), "bicubic": (_cubic, 2.0)}
+
+
+def _coefficients(in_size: int, out_size: int, kind: str) -> tuple[np.ndarray, np.ndarray]:
     """Per output pixel: the first source index and the fixed-point weights
     of its taps, zero-padded to a common length ([out], [out, taps])."""
+    filt, filter_support = _FILTERS[kind]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 1.0 * filterscale
+    support = filter_support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     starts = np.zeros(out_size, np.int64)
     weights = np.zeros((out_size, ksize), np.int64)
@@ -106,8 +127,7 @@ def _bilinear_coefficients(in_size: int, out_size: int) -> tuple[np.ndarray, np.
         xmax = min(int(center + support + 0.5), in_size) - xmin
         k = []
         for x in range(xmax):
-            t = abs((x + xmin - center + 0.5) * ss)
-            k.append(1.0 - t if t < 1.0 else 0.0)
+            k.append(filt((x + xmin - center + 0.5) * ss))
         ww = sum(k)
         if ww != 0.0:
             k = [v / ww for v in k]
@@ -118,8 +138,8 @@ def _bilinear_coefficients(in_size: int, out_size: int) -> tuple[np.ndarray, np.
     return starts, weights
 
 
-def _resample_axis0(image: np.ndarray, out_size: int) -> np.ndarray:
-    starts, weights = _bilinear_coefficients(image.shape[0], out_size)
+def _resample_axis0(image: np.ndarray, out_size: int, kind: str) -> np.ndarray:
+    starts, weights = _coefficients(image.shape[0], out_size, kind)
     taps = np.minimum(starts[:, None] + np.arange(weights.shape[1]), image.shape[0] - 1)
     gathered = image[taps].astype(np.int64)  # [out, taps, ...]
     wts = weights.reshape(weights.shape + (1,) * (image.ndim - 1))
@@ -127,15 +147,26 @@ def _resample_axis0(image: np.ndarray, out_size: int) -> np.ndarray:
     return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
-def resize_bilinear(image: np.ndarray, size_hw: tuple[int, int]) -> np.ndarray:
-    """uint8 ``image`` [H, W] or [H, W, C] resized to ``size_hw`` by
-    Pillow's bilinear resampling (antialiased when reducing)."""
+def _resize_8bit(image: np.ndarray, size_hw: tuple[int, int], kind: str) -> np.ndarray:
     if image.dtype != np.uint8:
-        raise ValueError(f"resize_bilinear takes uint8 images, got {image.dtype}")
+        raise ValueError(f"resize_{kind} takes uint8 images, got {image.dtype}")
     h, w = size_hw
     out = image
     if w != image.shape[1]:
-        out = np.moveaxis(_resample_axis0(np.moveaxis(out, 1, 0), w), 0, 1)
+        out = np.moveaxis(_resample_axis0(np.moveaxis(out, 1, 0), w, kind), 0, 1)
     if h != image.shape[0]:
-        out = _resample_axis0(out, h)
+        out = _resample_axis0(out, h, kind)
     return np.ascontiguousarray(out)
+
+
+def resize_bilinear(image: np.ndarray, size_hw: tuple[int, int]) -> np.ndarray:
+    """uint8 ``image`` [H, W] or [H, W, C] resized to ``size_hw`` by
+    Pillow's bilinear resampling (antialiased when reducing)."""
+    return _resize_8bit(image, size_hw, "bilinear")
+
+
+def resize_bicubic(image: np.ndarray, size_hw: tuple[int, int]) -> np.ndarray:
+    """uint8 ``image`` [H, W] or [H, W, C] resized to ``size_hw`` by
+    Pillow's bicubic resampling (antialiased when reducing), the default of
+    ``Image.resize`` for RGB and L images."""
+    return _resize_8bit(image, size_hw, "bicubic")

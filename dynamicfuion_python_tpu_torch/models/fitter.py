@@ -17,6 +17,14 @@ analytic (stage 2, per face), and the chain rule runs per covered pixel
 into N + 1 rows, the last one dropped. The ``"fast"`` term runs the same
 stages per pixel without compaction; the ``"autodiff"`` term differentiates
 the whole per-pixel chain with ``torch.func`` (``vmap(jacrev)``).
+
+With a process group (``group``, ``parallel/spmd.py``) each rank holds one
+slab of the frame's pixel rows: every rank rasterizes the whole frame (B1
+and B2 launch on every rank), computes the data term's rows for its own
+pixels and adds them onto the sums of the ranks before it; the face term's
+compaction cap stays the whole frame's, each rank keeping its covered
+pixels whose rank in the frame is below it. The ARAP term and the solve run
+on every rank and rank 0's update is broadcast.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ from dynamicfuion_python_tpu_torch.ops.mesh_expand import expand_project_faces
 from dynamicfuion_python_tpu_torch.ops.normals import mesh_vertex_normals
 from dynamicfuion_python_tpu_torch.ops.rasterize import rasterize_binned
 from dynamicfuion_python_tpu_torch.ops.warp import blend_warp
+from dynamicfuion_python_tpu_torch.parallel import spmd
 from dynamicfuion_python_tpu_torch.utils.device import resolve_device
 
 
@@ -247,11 +256,12 @@ def _chain_rule(grad18, ro, rn, wg, sid):
     return jac
 
 
-def _assemble_normal_equations(jac, residuals, ok, slot_nodes, config: FitterConfig, n: int):
+def _assemble_normal_equations(jac, residuals, ok, slot_nodes, config: FitterConfig, n: int, chain=None):
     """Robust weights, then the per-node 6x6 blocks and gradient rows of the
     data term: ``jac`` is 6 tensors [P, 12], ``slot_nodes`` int[P, 12] the
-    node of each slot (-1 pad). Returns (h_data [N, 6, 6], g_data [N, 6],
-    data_loss)."""
+    node of each slot (-1 pad). ``chain`` (a row shard's) adds the rows
+    after the ranks before this one and returns the frame's sums. Returns
+    (h_data [N, 6, 6], g_data [N, 6], data_loss)."""
     dev = residuals.device
     residuals = torch.where(ok, residuals, 0.0)
     if config.use_tukey_penalty:
@@ -282,26 +292,53 @@ def _assemble_normal_equations(jac, residuals, ok, slot_nodes, config: FitterCon
     rows = [jsafe[a] * jsafe[b] * scale for a in range(6) for b in range(6)]
     rows += [-jc * gw for jc in jsafe]
     hg = torch.zeros((n + 1, 42), dtype=torch.float32, device=dev)
-    hg.index_add_(0, seg, torch.stack(rows, dim=-1))
+    if chain is None:
+        hg.index_add_(0, seg, torch.stack(rows, dim=-1))
+    else:
+        hg = chain(hg, seg, torch.stack(rows, dim=-1))
     h_data = hg[:n, :36].reshape(n, 6, 6)
     g_data = hg[:n, 36:]
     data_loss = 0.5 * torch.sum(weight * residuals**2)
     return h_data, g_data, data_loss
 
 
-def _pixel_grid(h: int, w: int, dev):
+class RowShard(NamedTuple):
+    """A rank's slab of the frame: rows [row0, row0 + slab height) of a
+    frame ``height`` rows tall. ``budget``: how many of its covered pixels
+    the face term may keep under the frame's compaction cap (None: all up
+    to the cap). ``chain(acc, index, rows)``: adds the slab's rows onto the
+    sums of the ranks before it, in rank order, and returns the frame's
+    sums (``parallel/spmd.py::chained_index_add``)."""
+
+    row0: int
+    height: int
+    budget: torch.Tensor | None = None
+    chain: object = None
+
+
+def compaction_cap(total: int, fraction: float) -> int | None:
+    """The face term's covered-pixel cap for a frame of ``total`` pixels:
+    ``total * fraction`` rounded up to a multiple of 1024 (None: no
+    compaction)."""
+    if fraction and 0 < fraction < 1.0:
+        return min(total, ((int(total * fraction) + 1023) // 1024) * 1024)
+    return None
+
+
+def _pixel_grid(h: int, w: int, dev, row0: int = 0):
     lin = torch.arange(h * w, device=dev)
-    return (lin % w).to(torch.float32), (lin // w).to(torch.float32)
+    return (lin % w).to(torch.float32), (lin // w + row0).to(torch.float32)
 
 
 def _data_term_face(
     pos_v, rot_v, trans_v, canonical_vertices, canonical_normals, canonical_triangles,
     pre: FacePrecompute, frag_faces, reference_points, reference_mask, intrinsics,
-    config: FitterConfig, num_nodes: int,
+    config: FitterConfig, num_nodes: int, shard: RowShard | None = None,
 ):
     """Face-major data term: per-(vertex, anchor) warp quantities once per
     face, per-pixel stages on the compacted covered-pixel set. Returns
-    (h_data f32[N, 6, 6], g_data f32[N, 6], data_loss)."""
+    (h_data f32[N, 6, 6], g_data f32[N, 6], data_loss). With ``shard`` the
+    images are that slab's rows."""
     dev = canonical_vertices.device
     h, w = reference_mask.shape
     warped18_f, rot_off_f, rot_nrm_f, wgt_f, sid_f = _pair_tables(
@@ -309,34 +346,38 @@ def _data_term_face(
         pos_v, rot_v, trans_v, canonical_vertices, canonical_normals,
     )
 
-    # ---- covered-pixel compaction
+    # ---- covered-pixel compaction (the cap is the whole frame's)
+    row0 = shard.row0 if shard is not None else 0
     pix_face = frag_faces.reshape(-1).long()
     pix_ok = (pix_face >= 0) & reference_mask.reshape(-1)
-    total = pix_face.shape[0]
-    frac = config.pixel_compaction_fraction
-    if frac and 0 < frac < 1.0:
-        cap = min(total, ((int(total * frac) + 1023) // 1024) * 1024)
-        idx, n_ok = compact_mask_indices(pix_ok, cap, fill_value=0)
-        ok = torch.arange(cap, device=dev) < n_ok
+    cap = compaction_cap((shard.height if shard is not None else h) * w, config.pixel_compaction_fraction)
+    if cap is not None:
+        size = min(cap, h * w)
+        idx, n_ok = compact_mask_indices(pix_ok, size, fill_value=0)
+        if shard is not None and shard.budget is not None:
+            n_ok = torch.minimum(n_ok, shard.budget)
+        ok = torch.arange(size, device=dev) < n_ok
         pface = torch.where(ok, pix_face[idx], 0)
         ref_pts = reference_points.reshape(-1, 3)[idx]
         px = (idx % w).to(torch.float32)
-        py = (idx // w).to(torch.float32)
+        py = (idx // w + row0).to(torch.float32)
     else:
         ok = pix_ok
         pface = pix_face
         ref_pts = reference_points.reshape(-1, 3)
-        px, py = _pixel_grid(h, w, dev)
+        px, py = _pixel_grid(h, w, dev, row0)
     safe_face = pface.clamp(min=0)
     residuals, grad18 = _stage1_value_and_grad(warped18_f[safe_face], px, py, ref_pts, intrinsics)
     jac = _chain_rule(grad18, rot_off_f[safe_face], rot_nrm_f[safe_face], wgt_f[safe_face], sid_f[safe_face])
-    return _assemble_normal_equations(jac, residuals, ok, pre.face_nodes[safe_face], config, num_nodes)
+    return _assemble_normal_equations(
+        jac, residuals, ok, pre.face_nodes[safe_face], config, num_nodes, shard.chain if shard is not None else None
+    )
 
 
 def _data_term_fast(
     pos_v, rot_v, trans_v, canonical_vertices, canonical_normals, canonical_triangles,
     pre: FacePrecompute, frag_faces, reference_points, reference_mask, intrinsics,
-    config: FitterConfig, num_nodes: int,
+    config: FitterConfig, num_nodes: int, shard: RowShard | None = None,
 ):
     """Pixel-major data term: the face term's math with the warp quantities
     computed per pixel from its fragment face and no compaction. Returns
@@ -350,10 +391,12 @@ def _data_term_fast(
         canonical_triangles[safe_face], pre.slot_of_vertex_anchor[safe_face], face_nodes, pre.weights,
         pos_v, rot_v, trans_v, canonical_vertices, canonical_normals,
     )
-    px, py = _pixel_grid(h, w, canonical_vertices.device)
+    px, py = _pixel_grid(h, w, canonical_vertices.device, shard.row0 if shard is not None else 0)
     residuals, grad18 = _stage1_value_and_grad(warped18, px, py, reference_points.reshape(-1, 3), intrinsics)
     jac = _chain_rule(grad18, ro, rn, wg, sid)
-    return _assemble_normal_equations(jac, residuals, ok, face_nodes, config, num_nodes)
+    return _assemble_normal_equations(
+        jac, residuals, ok, face_nodes, config, num_nodes, shard.chain if shard is not None else None
+    )
 
 
 def _pixel_residual(
@@ -411,7 +454,7 @@ _residual_and_jacobian = torch.func.vmap(
 def _data_term_autodiff(
     pos_v, rot_v, trans_v, canonical_vertices, canonical_normals, canonical_triangles,
     pre: FacePrecompute, frag_faces, reference_points, reference_mask, intrinsics,
-    config: FitterConfig, num_nodes: int,
+    config: FitterConfig, num_nodes: int, shard: RowShard | None = None,
 ):
     """The data term from per-pixel jacobians of the whole residual chain
     (``vmap(jacrev)``): the oracle the analytic terms are held to. Returns
@@ -424,7 +467,7 @@ def _data_term_autodiff(
     tri = canonical_triangles[safe_face].long()
     face_nodes = pre.face_nodes[safe_face]
     safe_nodes = face_nodes.clamp(min=0).long()
-    px, py = _pixel_grid(h, w, dev)
+    px, py = _pixel_grid(h, w, dev, shard.row0 if shard is not None else 0)
     zero_delta = torch.zeros((MAX_FACE_NODES, 6), dtype=torch.float32, device=dev)
     jac, residuals = _residual_and_jacobian(
         zero_delta, px, py, canonical_vertices[tri], canonical_normals[tri],
@@ -433,7 +476,8 @@ def _data_term_autodiff(
         reference_points.reshape(-1, 3), intrinsics,
     )  # jac [P, 12, 6], residuals [P]
     return _assemble_normal_equations(
-        [jac[..., c] for c in range(6)], residuals, ok, face_nodes, config, num_nodes
+        [jac[..., c] for c in range(6)], residuals, ok, face_nodes, config, num_nodes,
+        shard.chain if shard is not None else None,
     )
 
 
@@ -452,6 +496,51 @@ def _max_wing_degree(field: HierarchicalGraphWarpField) -> int:
     return max(1, min(4, field.layer_node_counts[1] if len(field.layer_node_counts) > 1 else 1))
 
 
+def data_normal_equations(
+    pos_v, rot_v, trans_v, canonical_vertices, canonical_normals, canonical_triangles,
+    pre: FacePrecompute, frame_faces, reference_points, reference_mask, intrinsics,
+    config: FitterConfig, num_nodes: int, group=None,
+):
+    """The configured data term's normal equations over the frame's
+    rasterized face ids ``frame_faces`` [H, W]. With ``group`` the
+    reference points and mask are this rank's row slab: the rank assembles
+    its rows, keeping those of its covered pixels whose rank in the whole
+    frame is below the frame's compaction cap (one ``all_reduce`` of the
+    ranks' covered-pixel counts gives the prefix). H and g add each rank's
+    rows onto the running sums of the ranks before it (one ``broadcast``
+    per rank), in one process's order: on the CPU they equal its sums bit
+    for bit. An ``all_reduce`` sums the loss. Returns (h_data f32[N, 6, 6],
+    g_data f32[N, 6], data_loss, covered pixels of the frame, the cap or
+    None)."""
+    impl = data_term_impl(config)
+    dev = canonical_vertices.device
+    slab_h, w = reference_mask.shape
+    h, row0 = slab_h, 0
+    if group is not None:
+        world, rank = spmd.group_size(group), spmd.group_rank(group)
+        h, row0 = slab_h * world, rank * slab_h
+    frag_faces = frame_faces[row0 : row0 + slab_h]
+    cap = compaction_cap(h * w, config.pixel_compaction_fraction) if impl == "face" else None
+    n_covered = torch.sum((frag_faces.reshape(-1) >= 0) & reference_mask.reshape(-1))
+    kwargs = {}
+    if group is not None:
+        counts = torch.zeros(world, dtype=torch.float64, device=dev)
+        counts[rank] = n_covered
+        (counts,) = spmd.all_reduce_sum([counts], group)
+        n_covered = torch.sum(counts)
+        budget = None if cap is None else torch.clamp(cap - torch.sum(counts[:rank]), min=0).to(torch.int64)
+        kwargs["shard"] = RowShard(
+            row0, h, budget, lambda acc, index, rows: spmd.chained_index_add(acc, index, rows, group)
+        )
+    h_data, g_data, data_loss = _DATA_TERMS[impl](
+        pos_v, rot_v, trans_v, canonical_vertices, canonical_normals, canonical_triangles,
+        pre, frag_faces, reference_points, reference_mask, intrinsics, config, num_nodes, **kwargs,
+    )
+    if group is not None:
+        (data_loss,) = spmd.all_reduce_sum([data_loss], group)
+    return h_data, g_data, data_loss, n_covered, cap
+
+
 class StepResult(NamedTuple):
     field: HierarchicalGraphWarpField
     data_loss: torch.Tensor
@@ -468,11 +557,15 @@ def gauss_newton_step(
     field: HierarchicalGraphWarpField,
     canonical_vertices, canonical_triangles, canonical_normals,
     pre: FacePrecompute, reference_points, reference_mask, intrinsics,
-    config: FitterConfig, mode: IterationMode, max_deg: int,
+    config: FitterConfig, mode: IterationMode, max_deg: int, group=None,
 ) -> StepResult:
-    """One GN/LM iteration (see the module docstring)."""
+    """One GN/LM iteration (see the module docstring). With ``group`` the
+    reference points and mask are this rank's slab of the frame's rows
+    (rank r of W holds rows [r h, (r + 1) h) of an h W-row frame)."""
     dev = canonical_vertices.device
     h, w = reference_mask.shape
+    if group is not None:
+        h *= spmd.group_size(group)
     n = field.num_nodes
     n0 = field.arrow_base
     nc = n - n0
@@ -491,12 +584,9 @@ def gauss_newton_step(
         tile_size=config.tile_size, max_faces_per_bin=config.max_faces_per_bin,
         return_overflow=True,
     )
-    frag_faces = frag.face_indices[..., 0]
-
-    impl = data_term_impl(config)
-    h_data, g_data, data_loss = _DATA_TERMS[impl](
+    h_data, g_data, data_loss, n_covered, cap = data_normal_equations(
         pos_v, rot_v, trans_v, canonical_vertices, canonical_normals, canonical_triangles,
-        pre, frag_faces, reference_points, reference_mask, intrinsics, config, n,
+        pre, frag.face_indices[..., 0], reference_points, reference_mask, intrinsics, config, n, group,
     )
 
     # ---- ARAP term
@@ -583,14 +673,18 @@ def gauss_newton_step(
     delta = torch.where(valid_solve, delta, 0.0)
     field = field.rotate_nodes_virtual(delta[:, :3]).translate_nodes_virtual(delta[:, 3:])
     max_update = torch.amax(torch.abs(delta))
+    if group is not None:
+        # every rank continues from rank 0's update (the card's atomics may
+        # have summed the ARAP blocks in another order on each rank)
+        rot, trans, max_update, valid_solve = spmd.replicate(
+            [field.node_rotations, field.node_translations, max_update, valid_solve], group
+        )
+        field = field.replace(node_rotations=rot, node_translations=trans)
 
     # fraction of covered pixels the compaction cap kept (1.0 = none dropped)
-    frac = config.pixel_compaction_fraction
-    if impl == "face" and frac and 0 < frac < 1.0:
-        total = h * w
-        cap = min(total, ((int(total * frac) + 1023) // 1024) * 1024)
-        n_ok = torch.sum((frag_faces.reshape(-1) >= 0) & reference_mask.reshape(-1))
-        cap_kept = torch.clamp(n_ok, max=cap).to(torch.float32) / torch.clamp(n_ok, min=1).to(torch.float32)
+    if cap is not None:
+        cap_kept = (torch.clamp(n_covered, max=cap).to(torch.float32)
+                    / torch.clamp(n_covered, min=1).to(torch.float32))
     else:
         cap_kept = torch.ones((), device=dev)
     return StepResult(
@@ -607,9 +701,12 @@ def fit_to_image(
     intrinsics,
     config: FitterConfig = FitterConfig(),
     device: str | torch.device | None = None,
+    group=None,
 ) -> tuple[HierarchicalGraphWarpField, dict]:
     """Run the GN/LM loop on ``device`` (the CUDA card unless the caller
-    passes ``device="cpu"``); returns the updated field + diagnostics.
+    passes ``device="cpu"``); returns the updated field + diagnostics. With
+    ``group`` the reference points and mask are this rank's row slab of the
+    frame (see :func:`gauss_newton_step`).
 
     The loop stops early once an iteration's largest update is at most
     ``min_update_threshold`` (single-mode schedules); the diagnostics of
@@ -640,6 +737,8 @@ def fit_to_image(
         if config.coarse_iterations > 0 and f > 1 and len(runs) == 1:
             cc = min(config.coarse_iterations, config.max_iterations)
         full_views = (ref_points, ref_mask, intr)
+        if cc and group is not None and ref_mask.shape[0] % f:
+            raise ValueError(f"a {ref_mask.shape[0]}-row slab does not stride by the coarse factor {f}")
         if cc:
             coarse_intr = intr.clone()
             coarse_intr[:2, :] = coarse_intr[:2, :] * (1.0 / f)
@@ -659,7 +758,7 @@ def fit_to_image(
             done = []
             for _ in range(count):
                 out = gauss_newton_step(
-                    field, verts, tris, normals, pre, rp, rm, intr_v, config, mode, max_deg
+                    field, verts, tris, normals, pre, rp, rm, intr_v, config, mode, max_deg, group=group
                 )
                 field = out.field
                 done.append(out)

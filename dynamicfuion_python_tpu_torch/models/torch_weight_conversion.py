@@ -1,5 +1,6 @@
-"""Reference DeformNet checkpoints (port of
-``dynamicfuion_python_tpu/models/torch_weight_conversion.py``).
+"""Reference DeformNet and U²-Net checkpoints (port of
+``dynamicfuion_python_tpu/models/torch_weight_conversion.py`` and of the
+JAX ``models/u2net.py::convert_u2net_checkpoint``).
 
 The port's networks carry the reference's module names, so a reference
 ``state_dict`` loads as it is: this module reads checkpoint files and names
@@ -87,3 +88,103 @@ def load_deform_net_checkpoint(net: torch.nn.Module, path: str | Path) -> None:
     missing = [k for k in missing if has_mask or not k.startswith("mask_net.")]
     if missing or unexpected:
         raise ValueError(f"checkpoint/model mismatch: missing={missing[:5]} unexpected={unexpected[:5]}")
+
+
+# -- U²-Net ------------------------------------------------------------------
+
+
+def u2net_state_dict_from_flax(variables: dict) -> dict[str, torch.Tensor]:
+    """The JAX package's U²-Net variables ``{"params": ..., "batch_stats":
+    ...}`` (numpy leaves) as the original release's ``state_dict``: the
+    inverse of the JAX ``convert_u2net_checkpoint``. Conv ``kernel``
+    [kh, kw, in, out] -> ``weight`` [out, in, kh, kw]; BatchNorm ``scale`` ->
+    ``weight``; batch stats ``mean`` / ``var`` -> ``running_mean`` /
+    ``running_var``; ``num_batches_tracked`` is 0."""
+    state: dict[str, torch.Tensor] = {}
+
+    def walk(tree, prefix, stats):
+        for key, value in tree.items():
+            name = f"{prefix}{key}"
+            if isinstance(value, dict):
+                walk(value, name + ".", stats)
+                continue
+            value = np.asarray(value)
+            if stats:
+                state[f"{prefix}running_{key}"] = torch.as_tensor(value.copy())
+                state[f"{prefix}num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+            elif key == "kernel":
+                state[f"{prefix}weight"] = torch.as_tensor(value.transpose(3, 2, 0, 1).copy())
+            elif key == "scale":
+                state[f"{prefix}weight"] = torch.as_tensor(value.copy())
+            elif key == "bias":
+                state[name] = torch.as_tensor(value.copy())
+            else:
+                raise ValueError(f"unrecognized U²-Net variable: {name}")
+
+    walk(variables["params"], "", False)
+    walk(variables.get("batch_stats", {}), "", True)
+    return state
+
+
+def u2net_flax_from_state_dict(state_dict: dict) -> dict:
+    """An original-release U²-Net ``state_dict`` as the JAX package's Flax
+    variables (numpy leaves): the JAX ``convert_u2net_checkpoint`` mapping."""
+    params: dict = {}
+    batch_stats: dict = {}
+
+    def put(tree, path, value):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+
+    for name, tensor in state_dict.items():
+        value = tensor.detach().cpu().numpy() if hasattr(tensor, "detach") else np.asarray(tensor)
+        parts = name.split(".")
+        if parts[-1] == "num_batches_tracked":
+            continue
+        if parts[-1] == "weight" and value.ndim == 4:
+            put(params, parts[:-1] + ["kernel"], np.ascontiguousarray(value.transpose(2, 3, 1, 0)))
+        elif parts[-1] == "weight":
+            put(params, parts[:-1] + ["scale"], value)
+        elif parts[-1] == "bias":
+            put(params, parts, value)
+        elif parts[-1] in ("running_mean", "running_var"):
+            put(batch_stats, parts[:-1] + [parts[-1][len("running_"):]], value)
+        else:
+            raise ValueError(f"unrecognized checkpoint entry: {name}")
+    return {"params": params, "batch_stats": batch_stats}
+
+
+def load_u2net_checkpoint(model: torch.nn.Module, path: str | Path) -> None:
+    """Load U²-Net weights into ``model`` (strict): an original-release
+    ``.pth`` / ``.pt`` ``state_dict``, an ``.npz`` of Flax variables
+    flattened with "/" (``params/stage1/rebnconvin/conv_s1/kernel``), or a
+    Flax msgpack file of ``{"params": ..., "batch_stats": ...}``. Raises when
+    the weights do not fit the configuration (U2NET for ``u2net.pth``,
+    U2NETP for ``u2netp.pth``)."""
+    path = Path(path)
+    if path.suffix in (".pth", ".pt"):
+        state = torch.load(path, map_location="cpu", weights_only=True)
+    elif path.suffix == ".npz":
+        tree: dict = {}
+        with np.load(path, allow_pickle=False) as data:
+            for key in data.files:
+                node = tree
+                *parents, leaf = key.split("/")
+                for part in parents:
+                    node = node.setdefault(part, {})
+                node[leaf] = data[key]
+        state = u2net_state_dict_from_flax(tree)
+    else:
+        from dynamicfuion_python_tpu_torch.utils import flax_msgpack
+
+        state = u2net_state_dict_from_flax(flax_msgpack.load(path))
+    own = model.state_dict()
+    wrong = [k for k, v in state.items() if k in own and tuple(own[k].shape) != tuple(v.shape)]
+    if wrong:
+        raise ValueError(
+            f"checkpoint does not match the model configuration at {wrong[:3]} "
+            "(use the full model for u2net.pth, the lite one for u2netp.pth)"
+        )
+    model.load_state_dict(state, strict=True)

@@ -42,6 +42,24 @@ def project_points(
     return torch.stack([u, v], dim=-1), valid
 
 
+def intrinsics_to_ndc(intrinsics: torch.Tensor, image_size: tuple[int, int]) -> torch.Tensor:
+    """Image-space intrinsics -> NDC-space intrinsics f32[3, 3]: the shorter
+    image side spans [-1, 1], the longer [-s, s] with s = long / short;
+    focal lengths and centers scale by 2 / short."""
+    h, w = image_size
+    short = torch.tensor(float(min(h, w)), dtype=torch.float32, device=intrinsics.device)
+    fx, fy = intrinsics[0, 0], intrinsics[1, 1]
+    cx, cy = intrinsics[0, 2], intrinsics[1, 2]
+    s = 2.0 / short
+    zero = torch.zeros_like(fx)
+    one = torch.ones_like(fx)
+    return torch.stack([
+        torch.stack([fx * s, zero, cx * s - w / short]),
+        torch.stack([zero, fy * s, cy * s - h / short]),
+        torch.stack([zero, zero, one]),
+    ]).to(torch.float32)
+
+
 def transform_points(points: torch.Tensor, matrix4: torch.Tensor) -> torch.Tensor:
     """Apply a 4x4 rigid transform to [..., 3] points."""
     rotated = torch.einsum("ij,...j->...i", matrix4[:3, :3], points)

@@ -13,6 +13,11 @@ The JAX loop stops once an update's largest entry is at most 1e-7. Here every
 level runs its fixed iteration count with a device-side "still running" flag
 that freezes the transform and the rmse once it goes false: the same result,
 and no host synchronisation anywhere in the call.
+
+With a process group (``group``) each rank sums the normal equations over
+its own rows of the source image at every level (the target stays whole:
+a projective association may land in any row) and one ``all_reduce`` per
+iteration sums them.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 from dynamicfuion_python_tpu_torch.ops.camera import unproject_depth_image
 from dynamicfuion_python_tpu_torch.ops.linalg.rodrigues import axis_angle_to_matrix
 from dynamicfuion_python_tpu_torch.ops.normals import point_image_normals
+from dynamicfuion_python_tpu_torch.parallel import spmd
 
 
 def _downsample_depth(depth: torch.Tensor, factor: int) -> torch.Tensor:
@@ -44,6 +50,7 @@ def _icp_level(
     iterations: int,
     distance_threshold: float,
     update_threshold: float = 1e-7,
+    group=None,
 ):
     """``iterations`` Gauss-Newton steps from ``transform``; returns the
     transform and rmse of the last step taken before the largest update
@@ -52,8 +59,9 @@ def _icp_level(
     dev = source_points.device
     fx, fy = intrinsics[0, 0], intrinsics[1, 1]
     cx, cy = intrinsics[0, 2], intrinsics[1, 2]
-    src = source_points.reshape(-1, 3)
-    src_ok = source_mask.reshape(-1)
+    r0, r1 = (0, h) if group is None else spmd.row_range(h, group)
+    src = source_points[r0:r1].reshape(-1, 3)
+    src_ok = source_mask[r0:r1].reshape(-1)
     # target point, normal and validity packed into one 8-wide row table: the
     # projective association is a single row gather per iteration
     t_valid = target_mask & (torch.linalg.norm(target_normals, dim=-1) > 0.1)
@@ -95,8 +103,12 @@ def _icp_level(
         # 2.5e-7 between thread counts (the fits after it grow that to
         # 1.5e-4 m); in f64 the f32 result is the same for any split
         wj = (jac * wgt[:, None]).double()
-        a = (wj.T @ jac.double()).float() + damping
-        b = -(wj.T @ r.double()).float()
+        ata, atb = wj.T @ jac.double(), wj.T @ r.double()
+        err, count = torch.sum(wgt * r * r), torch.sum(wgt)
+        if group is not None:
+            ata, atb, err, count = spmd.all_reduce_sum([ata, atb, err, count], group)
+        a = ata.float() + damping
+        b = -atb.float()
         # solve_ex reports a singular system in its info tensor instead of
         # checking it on the host
         delta = torch.linalg.solve_ex(a, b)[0]
@@ -104,7 +116,7 @@ def _icp_level(
         new_rot = d_rot @ rot
         new_tr = d_rot @ tr + delta[3:]
         new_t = torch.cat([torch.cat([new_rot, new_tr[:, None]], dim=1), eye4[3:]], dim=0)
-        new_rmse = torch.sqrt(torch.sum(wgt * r * r) / torch.clamp(torch.sum(wgt), min=1.0))
+        new_rmse = torch.sqrt(err / torch.clamp(count, min=1.0))
         transform = torch.where(running, new_t, transform)
         rmse = torch.where(running, new_rmse, rmse)
         running = running & (torch.amax(torch.abs(delta)) > update_threshold)
@@ -121,9 +133,11 @@ def rigid_odometry_multi_scale(
     depth_scale: float = 1000.0,
     depth_max: float = 3.0,
     distance_threshold: float = 0.07,
+    group=None,
 ):
     """Estimate T such that T * source ~= target, on the device of the
-    depth images. Returns (T f32[4, 4], final rmse f32[])."""
+    depth images; with ``group``, each rank sums its own source rows.
+    Returns (T f32[4, 4], final rmse f32[])."""
     dev = source_depth.device
     intrinsics = intrinsics.to(device=dev, dtype=torch.float32)
     if initial_transform is None:
@@ -145,6 +159,6 @@ def rigid_odometry_multi_scale(
         tp, tm = unproject_depth_image(td, intr, depth_scale, depth_max)
         tn = point_image_normals(tp)
         transform, rmse = _icp_level(
-            sp, sm, tp, tn, tm, intr, transform, iterations_per_level, distance_threshold
+            sp, sm, tp, tn, tm, intr, transform, iterations_per_level, distance_threshold, group=group
         )
     return transform, rmse

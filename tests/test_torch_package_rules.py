@@ -1,6 +1,7 @@
 """Rules of the PyTorch port: it imports nothing of JAX or of the JAX
-package, its entry points refuse to run without a card unless the caller
-asks for the CPU, and what is not ported yet is refused by name."""
+package (the SOD app, U²-Net, the leaf ops and parallel/ included), its
+entry points refuse to run without a card unless the caller asks for the
+CPU, and what is not ported yet is refused by name."""
 
 import ast
 import subprocess
@@ -79,6 +80,40 @@ def test_entry_points_need_a_card_unless_asked(monkeypatch):
         ExpansionPlan(np.zeros((1, 3), np.int32), 3)
 
 
+def test_sod_and_parallel_entry_points_need_a_card_unless_asked(monkeypatch, tmp_path):
+    from dynamicfuion_python_tpu_torch import parallel
+    from dynamicfuion_python_tpu_torch.apps import sod
+    from dynamicfuion_python_tpu_torch.apps.fusion_pipeline import FusionPipeline
+    from dynamicfuion_python_tpu_torch.settings import Parameters
+    from dynamicfuion_python_tpu_torch.utils.telemetry import write_png
+
+    (tmp_path / "color").mkdir()
+    write_png(tmp_path / "color" / "000000.png", np.full((12, 10, 3), 90, np.uint8))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sod.generate_masks(tmp_path / "color", tmp_path / "sod")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sod.main(["-i", str(tmp_path / "color")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sod.build_model()
+    assert not (tmp_path / "sod").exists()  # refused before any work
+    written = sod.generate_masks(tmp_path / "color", tmp_path / "sod", resize_to=(16, 16), device="cpu")
+    assert [p.name for p in written] == ["000000.png"]
+    # the parallel entry points: no rendezvous is attempted without a card
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        parallel.initialize(f"file://{tmp_path / 'store'}", 1, 0, "gloo")
+    assert not torch.distributed.is_initialized()
+    for fn in (parallel.distributed_fit_step, parallel.distributed_fit_step_global):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(None, None, None, None, None, None, None, None, None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        parallel.global_rows_from_local(np.zeros((2, 2)), None)
+    # the pipeline's device is its constructor's; enable_spmd names its group
+    pipe = FusionPipeline(Parameters(), np.eye(3, dtype=np.float32), device="cpu")
+    with pytest.raises(ValueError, match="process group"):
+        pipe.enable_spmd(None)
+
+
 def test_unported_options_are_refused(tmp_path):
     from dynamicfuion_python_tpu_torch.apps.fusion_pipeline import FusionPipeline, _load_prior_network
     from dynamicfuion_python_tpu_torch.data.frame_sequence import SyntheticBendingPlaneSequence
@@ -116,8 +151,12 @@ def test_unported_options_are_refused(tmp_path):
     for name, value in net.state_dict().items():
         assert torch.equal(value, want[name]) and torch.equal(value, state[name]), name
     pipe = FusionPipeline(Parameters(), k, device="cpu")  # the default configuration runs
-    with pytest.raises(NotImplementedError, match="A17"):
+    # the SPMD frame loop is ported: it asks for a process group, and for
+    # initialize() to have run first
+    with pytest.raises(ValueError, match="process group"):
         pipe.enable_spmd(None)
+    with pytest.raises(RuntimeError, match="initialize"):
+        pipe.enable_spmd(object())
     # so do the rendered source-image modes (the prior's source is the
     # rendered model) and the rendered-mesh recorder, built as run_fusion
     # builds it, on test_torch_entry_point.py's small bending plane
