@@ -14,6 +14,9 @@ non-zero, on any failure):
      mesh capacity 65536, block table 4096 and 2048 active blocks so the
      scene fits), frame 0 + 5 fitted frames; every GN iteration must go
      through both kernels, and odometry must run on every frame from 2 on;
+     then the same frames from a fresh pipeline must leave the same bits
+     (nodes, rotations, translations, the TSDF values and weights of the
+     occupied blocks, the canonical mesh; both digests printed);
   3. kernels: each kernel against its plain PyTorch version on the inputs
      of the main path's last launch (the warped mesh of the last frame's
      last GN iteration), timed with CUDA events and the profiler beside its
@@ -41,8 +44,10 @@ non-zero, on any failure):
   9. DeformNet: the 448x640 bending plane (rigid odometry on) with the prior
      loading a seeded DeformNet checkpoint: the network must run on every
      fitted frame, every output be finite, and its forward on the card equal
-     its forward on the CPU; the forward, its point-cloud GN and the prior's
-     share of the frame are timed;
+     its forward on the CPU; the same run from a fresh pipeline must repeat
+     DeformNet's outputs (the point-cloud GN's node transforms among them)
+     and the fitted nodes bit for bit; the forward, its point-cloud GN and
+     the prior's share of the frame are timed;
  10. renderer: MeshRenderer on the main path's final warped canonical mesh
      at 480x640 (bins of 1024 faces) against the same render with both
      kernels replaced by their plain versions on the card: face ids equal,
@@ -84,8 +89,9 @@ non-zero, on any failure):
      control's), the loss and the gradients' relative L2 difference within
      TRAIN_LOSS_RTOL / TRAIN_GRAD_RTOL. Printed, never
      gated: step, forward and backward ms (CUDA events), data seconds per
-     batch, peak memory, the GN's share of the backward, one traced step
-     and the same step with TF32 left on (a control).
+     batch, peak memory, the GN's share of the backward, one traced step,
+     the same step with TF32 left on (a control) and whether the card step
+     run twice repeats its loss and gradients bit for bit.
  15. sod: apps/sod.py's generate_masks with the reference's default model
      (U2NET at full width, seeded weights, 320x320 input) over four 480x640
      PNG colour frames in a temporary directory, TF32 turned on globally
@@ -105,7 +111,7 @@ non-zero, on any failure):
      data term and one GN step on phase 7's fixed inputs against one
      process (H and g within phase 7's bounds, translations within 1e-5);
      then enable_spmd on the main path's slice for 3 fitted frames against
-     the single-process port run three times (their spread printed): node
+     the single-process port run three times (bit-equal, spread 0): node
      translations within 1e-3 m of the first run, every solve
      valid, the data loss falling and the occupied blocks equal each frame,
      both kernels launched in both ranks; frame wall time for 1 and 2 ranks.
@@ -231,13 +237,36 @@ def tensor_digest(values) -> str:
     def add(value):
         if isinstance(value, torch.Tensor):
             digest.update(str((value.dtype, tuple(value.shape))).encode())
-            digest.update(value.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+            digest.update(value.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
         elif isinstance(value, (tuple, list)):
             for v in value:
                 add(v)
 
     add(values)
     return digest.hexdigest()
+
+
+def _flat_tensors(value) -> list:
+    """Every tensor in ``value`` (inside tuples, lists and named tuples too),
+    in order."""
+    import torch
+
+    if isinstance(value, torch.Tensor):
+        return [value]
+    if isinstance(value, (tuple, list)):
+        return [t for v in value for t in _flat_tensors(v)]
+    return []
+
+
+def bit_equal(a, b) -> bool:
+    """The same tensors, bit for bit (NaN equal to the same NaN)."""
+    import torch
+
+    a, b = _flat_tensors(a), _flat_tensors(b)
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(x.detach().reshape(-1).view(torch.uint8), y.detach().reshape(-1).view(torch.uint8))
+        for x, y in zip(a, b))
 
 
 class LastCall:
@@ -418,7 +447,33 @@ def phase_main_path():
         "mean_frame_s": sum(r["wall_s"] for r in per_frame) / len(per_frame),
         "peak_mem_mib": torch.cuda.max_memory_allocated() / 2**20,
     })
+    # the same path again from a fresh pipeline (after the launch counts are
+    # read): every float sum has a fixed order, so it repeats bit for bit
+    again = FusionPipeline(params, seq.intrinsics)
+    again.initialize(frames[0].depth, frames[0].color)
+    for f in frames[1:]:
+        again.process_frame(f.depth, f.color)
+    torch.cuda.synchronize()
+    first, second = _main_path_state(pipe), _main_path_state(again)
+    equal = {k: bit_equal(first[k], second[k]) for k in first}
+    emit({"phase": "main_path", "repeat": True, "bit_equal": equal,
+          "digests": [tensor_digest(list(first.values())), tensor_digest(list(second.values()))]})
+    check(all(equal.values()), f"main path: a second run differs ({equal})")
     return last, launches, len(per_frame), pipe
+
+
+def _main_path_state(pipe) -> dict:
+    """What a run of the main path leaves: the nodes and their transforms,
+    the TSDF values and weights of the occupied (every active) block, and
+    the canonical mesh."""
+    field, volume = pipe.warp_field, pipe.volume
+    occupied = volume.occupied_mask()
+    return {
+        "node_positions": field.node_positions, "node_rotations": field.node_rotations,
+        "node_translations": field.node_translations, "block_keys": volume.slot_keys,
+        "tsdf": volume.tsdf[occupied], "weight": volume.weight[occupied],
+        "mesh_vertices": pipe.canonical_vertices, "mesh_triangles": pipe.canonical_triangles,
+    }
 
 
 def phase_kernels(last, launches, fitted_frames):
@@ -811,10 +866,12 @@ def phase_deform_net() -> dict:
     check(params.alignment.use_rigid_alignment, "deform_net: the scene must run the default rigid odometry")
     frames = list(seq)
     forwards = []  # the inputs of each DeformNet forward
+    outputs = []  # and its outputs, copied
 
     def record(module, args, kwargs, output):
         if isinstance(module, dn.DeformNet):
             forwards.append((args, kwargs))
+            outputs.append(_snapshot(output))
 
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "deform_net.pt"
@@ -839,6 +896,30 @@ def phase_deform_net() -> dict:
             hook.remove()
             loads.restore()
             gn.restore()
+        # the same run again from a fresh pipeline (after the launch counts
+        # are read): DeformNet's outputs (flow, mask, the point-cloud GN's
+        # node transforms) and the fitted nodes repeat bit for bit
+        first_outputs, first_forwards = list(outputs), len(forwards)
+        outputs.clear()
+        hook = torch.nn.modules.module.register_module_forward_hook(record, with_kwargs=True)
+        try:
+            again = fusion_pipeline.FusionPipeline(params, seq.intrinsics)
+            again.initialize(frames[0].depth, frames[0].color)
+            for f in frames[1:]:
+                again.process_frame(f.depth, f.color)
+            torch.cuda.synchronize()
+        finally:
+            hook.remove()
+        del forwards[first_forwards:]
+    repeat = {
+        "deform_net_outputs_bit_equal": len(outputs) == len(first_outputs) and bit_equal(first_outputs, outputs),
+        "nodes_bit_equal": all(bit_equal(getattr(pipe.warp_field, k), getattr(again.warp_field, k))
+                               for k in ("node_rotations", "node_translations")),
+        "digests": [tensor_digest(list(first_outputs)), tensor_digest(list(outputs))],
+    }
+    emit({"phase": "deform_net", "repeat": True, **repeat})
+    check(repeat["deform_net_outputs_bit_equal"] and repeat["nodes_bit_equal"],
+          f"deform_net: a second run differs ({repeat})")
     net = pipe.prior.deform_net
     check(loads.calls == 1 and net is not None, f"deform_net: the network was loaded {loads.calls} times")
     check(len(forwards) == len(rows) and all(r["prior_valid"] is not None for r in rows),
@@ -1522,6 +1603,7 @@ def phase_train(smi: str) -> dict:
         try:
             cpu_loss, cpu_grads, _ = _one_step("1_solver", trained, batch, "cpu")
             card_loss, card_grads, card_flags = _one_step("1_solver", trained, batch, "cuda")
+            repeat_loss, repeat_grads, _ = _one_step("1_solver", trained, batch, "cuda")
             check((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == (True, True),
                   "train: the step did not restore the global TF32 flags")
             tf32_loss, tf32_grads, tf32_flags = _one_step("1_solver", trained, batch, "cuda", tf32_backward=True)
@@ -1538,6 +1620,14 @@ def phase_train(smi: str) -> dict:
         check(card["finite"] and math.isfinite(card_loss), "train: non-finite card gradients")
         check(card["loss_rel"] <= TRAIN_LOSS_RTOL, f"train: card loss {card_loss} against CPU {cpu_loss}")
         check(card["grad_rel_l2"] <= TRAIN_GRAD_RTOL, f"train: card gradients against the CPU's: {card}")
+        # the same step twice on the card, never a gate: the forward's sums
+        # repeat, the backward's (autograd's index_add_ of the gathers) may not
+        row["card_step_repeat"] = {
+            "loss_bit_equal": repeat_loss == card_loss,
+            "gradients_bit_equal": bit_equal([card_grads[k] for k in sorted(card_grads)],
+                                             [repeat_grads[k] for k in sorted(card_grads)]),
+            "grad_max_abs_diff": max(float((repeat_grads[k] - g).abs().max()) for k, g in card_grads.items()),
+        }
         # the control, never a gate: the same step with TF32 left on
         row["card_tf32_vs_cpu"] = {"loss_rel": abs(tf32_loss - cpu_loss) / abs(cpu_loss),
                                    **_grad_diff(tf32_grads, cpu_grads)}
@@ -1594,15 +1684,15 @@ SPMD_RANKS = 2
 SPMD_FITTED_FRAMES = 3
 SPMD_TIMEOUT_S = 420.0
 # the two-rank loop's node translations against the first single-process
-# run, within 1e-3 m (a quarter of a voxel). The card's float atomics make
-# every run differ and the fit grows it frame by frame: in four runs on an
-# NVIDIA H100 80GB HBM3 (700 W) the single process's runs sat
-# 2.1e-5-1.08e-4 m apart and the two ranks 5.3e-5-1.82e-4 m from one of
-# them, past 3x the runs' own spread in two of the four. So the spread (the
-# largest distance between two of SPMD_SINGLE_RUNS runs) is printed beside
-# the bound and does not set it. The fixed-input step (the same inputs on
-# both sides, no frame feedback) is held to 1e-5, and the CPU tests hold
-# the loop bit for bit
+# run, within 1e-3 m (a quarter of a voxel). Every float sum on the card
+# has a fixed order (ops/segment_sum.py), so the single process repeats bit
+# for bit: its SPMD_SINGLE_RUNS runs must be equal (spread 0). The two
+# ranks add their halves of the data term onto a chain, each half summed in
+# one fixed order, which rounds differently from one process's single sum;
+# the fit grows that difference frame by frame, so the loop's error is a
+# fixed number per build, printed beside the bound. The fixed-input step
+# (the same inputs on both sides, no frame feedback) is held to 1e-5, and
+# the CPU tests hold the loop bit for bit
 SPMD_SINGLE_RUNS = 3
 SPMD_LOOP_TOL = 1e-3
 
@@ -1907,6 +1997,7 @@ def phase_spmd(step_call, data_term_call) -> dict:
         single.append((rows, pipe.warp_field.node_translations.cpu()))
     pairs = [float((a[1] - b[1]).abs().max()) for i, a in enumerate(single) for b in single[i + 1:]]
     spread = max(pairs)
+    singles_equal = all(bit_equal(single[0][1], run[1]) for run in single[1:])
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -1935,8 +2026,8 @@ def phase_spmd(step_call, data_term_call) -> dict:
         "fixed_g_max_abs_err": float((fixed["g"] - g1).abs().max()), "fixed_g_atol": g_atol,
         "fixed_loss_rel": abs(fixed["loss"] - float(l1)) / max(abs(float(l1)), 1e-30),
         "fixed_step_translation_err": step_err,
-        "single_run_pair_distances": pairs, "single_run_spread": spread, "loop_tolerance": SPMD_LOOP_TOL,
-        "loop_translation_err": loop_err, "loop_err_over_spread": loop_err / max(spread, 1e-30),
+        "single_run_pair_distances": pairs, "single_run_spread": spread, "single_runs_bit_equal": singles_equal,
+        "loop_tolerance": SPMD_LOOP_TOL, "loop_translation_err": loop_err,
         "ranks_agree": bool(torch.equal(ranks[0]["translations"], ranks[1]["translations"])),
         "frames": [{"rank": rf, "single": sf} for rf, sf in zip(ranks[0]["frames"], single[0][0])],
         "launches_per_rank": [r["launches"] for r in ranks], "ranks_wall_s": ranks_s,
@@ -1947,6 +2038,7 @@ def phase_spmd(step_call, data_term_call) -> dict:
           "spmd: the two ranks' data term differs from one process's")
     check(row["fixed_loss_rel"] <= 1e-5, f"spmd: data loss {fixed['loss']} against {float(l1)}")
     check(step_err <= 1e-5, f"spmd: the fixed step's translations differ by {step_err}")
+    check(singles_equal and spread == 0.0, f"spmd: the single-process runs differ (spread {spread})")
     check(loop_err <= SPMD_LOOP_TOL, f"spmd: the loop's translations differ by {loop_err} > {SPMD_LOOP_TOL}")
     check(row["ranks_agree"], "spmd: the ranks' warp fields differ")
     for rf, sf in zip(ranks[0]["frames"], single[0][0]):

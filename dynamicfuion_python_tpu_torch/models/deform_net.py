@@ -24,6 +24,7 @@ from dynamicfuion_python_tpu_torch.models.gn_point_cloud_optimizer import GnConf
 from dynamicfuion_python_tpu_torch.models.mask_net import MaskNet
 from dynamicfuion_python_tpu_torch.models.pwcnet import PWCNet, upsample_flow_to_full
 from dynamicfuion_python_tpu_torch.ops.image_warp import grid_sample_normalized
+from dynamicfuion_python_tpu_torch.ops.segment_sum import segment_sum
 from dynamicfuion_python_tpu_torch.ops.warp import blend_warp
 
 
@@ -181,16 +182,14 @@ def track_from_flow(
             pixel_weights[i].reshape(-1) * (anchors >= 0)
             * correspondence_mask[i].reshape(-1).to(torch.float32).repeat_interleave(4)
         )
-        per_node_weight.append(
-            torch.zeros(n, dtype=torch.float32, device=dev).index_add_(0, anchors.clamp(min=0).long(), flat_w)
-        )
+        per_node_weight.append(segment_sum(flat_w, anchors.clamp(min=0).long(), n))
     per_node_weight = torch.stack(per_node_weight)  # [B, N]
     if guards.remove_clusters_with_few_matches:
         cluster_weight = []
         for i in range(b):
             clusters = graph_clusters[i]
             safe = clusters.clamp(min=0).long()
-            csum = torch.zeros(n, dtype=torch.float32, device=dev).index_add_(0, safe, per_node_weight[i])
+            csum = segment_sum(per_node_weight[i], safe, n)
             cluster_weight.append(torch.where(clusters >= 0, csum[safe], 0.0))
         deformations_validity = (per_node_weight > 0.0) & (
             torch.stack(cluster_weight) >= guards.min_num_correspondences_per_cluster

@@ -13,8 +13,10 @@ Fragment face ids are frozen per iteration; the residual's derivatives with
 respect to the 18 warped vertex/normal scalars of its face come from
 autograd of the scalarized pixel function (stage 1), the warp jacobians are
 analytic (stage 2, per face), and the chain rule runs per covered pixel
-(stage 3). The JAX package's one-hot MXU contractions are ``index_add_``
-into N + 1 rows, the last one dropped. The ``"fast"`` term runs the same
+(stage 3). The JAX package's one-hot MXU contractions are
+``ops/segment_sum.py::segment_sum`` over N rows (the JAX overflow row N is
+dropped): ``index_add_`` on the CPU, a one-hot product on the card, so the
+card repeats bit for bit. The ``"fast"`` term runs the same
 stages per pixel without compaction; the ``"autodiff"`` term differentiates
 the whole per-pixel chain with ``torch.func`` (``vmap(jacrev)``).
 
@@ -52,6 +54,7 @@ from dynamicfuion_python_tpu_torch.ops.linalg import (
 from dynamicfuion_python_tpu_torch.ops.mesh_expand import expand_project_faces
 from dynamicfuion_python_tpu_torch.ops.normals import mesh_vertex_normals
 from dynamicfuion_python_tpu_torch.ops.rasterize import rasterize_binned
+from dynamicfuion_python_tpu_torch.ops.segment_sum import segment_sum
 from dynamicfuion_python_tpu_torch.ops.warp import blend_warp
 from dynamicfuion_python_tpu_torch.parallel import spmd
 from dynamicfuion_python_tpu_torch.utils.device import resolve_device
@@ -231,9 +234,13 @@ def _pair_tables(
 
 def _chain_rule(grad18, ro, rn, wg, sid):
     """Stage 3: the 6-dof jacobian rows of each pixel's 12 face node slots,
-    as 6 tensors [P, 12] (rotation xyz, translation xyz)."""
+    as 6 tensors [P, 12] (rotation xyz, translation xyz). The (vertex,
+    anchor) pairs add into their slots one pair at a time (the JAX
+    package's ``eye12[sid]`` one-hot adds): each step reads every pixel's
+    slot of that pair, adds and writes it back, one element per pixel, so
+    no two writes meet and no other slot is touched."""
     cap = grad18.shape[0]
-    jac = [torch.zeros((cap, 12), dtype=torch.float32, device=grad18.device) for _ in range(6)]
+    jac = torch.zeros((6, cap, 12), dtype=torch.float32, device=grad18.device)
     for i in range(3):
         gwx, gwy, gwz = grad18[:, 3 * i], grad18[:, 3 * i + 1], grad18[:, 3 * i + 2]
         gmx, gmy, gmz = grad18[:, 9 + 3 * i], grad18[:, 10 + 3 * i], grad18[:, 11 + 3 * i]
@@ -242,18 +249,17 @@ def _chain_rule(grad18, ro, rn, wg, sid):
             wgt = wg[:, pair]
             rx, ry, rz = ro[:, 3 * pair], ro[:, 3 * pair + 1], ro[:, 3 * pair + 2]
             sx, sy, sz = rn[:, 3 * pair], rn[:, 3 * pair + 1], rn[:, 3 * pair + 2]
-            vals = (
+            vals = torch.stack((
                 -wgt * ((gwy * rz - gwz * ry) + (gmy * sz - gmz * sy)),
                 -wgt * ((gwz * rx - gwx * rz) + (gmz * sx - gmx * sz)),
                 -wgt * ((gwx * ry - gwy * rx) + (gmx * sy - gmy * sx)),
                 wgt * gwx,
                 wgt * gwy,
                 wgt * gwz,
-            )
-            slot = sid[:, pair : pair + 1]
-            for c, val in enumerate(vals):
-                jac[c].scatter_add_(1, slot, val[:, None])
-    return jac
+            ))
+            slot = sid[None, :, pair : pair + 1].expand(6, cap, 1)
+            jac.scatter_(2, slot, torch.gather(jac, 2, slot) + vals[..., None])
+    return list(jac)
 
 
 def _assemble_normal_equations(jac, residuals, ok, slot_nodes, config: FitterConfig, n: int, chain=None):
@@ -262,7 +268,6 @@ def _assemble_normal_equations(jac, residuals, ok, slot_nodes, config: FitterCon
     node of each slot (-1 pad). ``chain`` (a row shard's) adds the rows
     after the ranks before this one and returns the frame's sums. Returns
     (h_data [N, 6, 6], g_data [N, 6], data_loss)."""
-    dev = residuals.device
     residuals = torch.where(ok, residuals, 0.0)
     if config.use_tukey_penalty:
         c_t = config.tukey_cutoff
@@ -274,7 +279,7 @@ def _assemble_normal_equations(jac, residuals, ok, slot_nodes, config: FitterCon
     flat_w = weight.repeat_interleave(12)
     flat_r = residuals.repeat_interleave(12)
     slot_ok = (flat_nodes >= 0) & (flat_w > 0)
-    seg = torch.where(slot_ok, flat_nodes, n)  # row n is dropped
+    seg = torch.where(slot_ok, flat_nodes, n)  # segment n is dropped
     jflat = [jc.reshape(-1) for jc in jac]
     if config.lump_data_hessian:
         # |J_trans| of a (pixel, slot) is its blend weight: dividing one
@@ -283,21 +288,20 @@ def _assemble_normal_equations(jac, residuals, ok, slot_nodes, config: FitterCon
         lump = 1.0 / torch.clamp(w_eff, min=1e-3)
     else:
         lump = torch.ones_like(jflat[0])
-    # rows routed to the dropped row n are zeroed first, as the JAX package
-    # does before its one-hot sum: masked pixels may carry non-finite
-    # stage-1 gradients
+    # rows routed to the dropped segment n are zeroed first, as the JAX
+    # package does before its one-hot sum: masked pixels may carry
+    # non-finite stage-1 gradients
     scale = torch.where(slot_ok, lump * flat_w, 0.0)
     jsafe = [torch.where(slot_ok, jc, 0.0) for jc in jflat]
     gw = torch.where(slot_ok, flat_w * flat_r, 0.0)
     rows = [jsafe[a] * jsafe[b] * scale for a in range(6) for b in range(6)]
     rows += [-jc * gw for jc in jsafe]
-    hg = torch.zeros((n + 1, 42), dtype=torch.float32, device=dev)
     if chain is None:
-        hg.index_add_(0, seg, torch.stack(rows, dim=-1))
+        hg = segment_sum(torch.stack(rows, dim=-1), seg, n)
     else:
-        hg = chain(hg, seg, torch.stack(rows, dim=-1))
-    h_data = hg[:n, :36].reshape(n, 6, 6)
-    g_data = hg[:n, 36:]
+        hg = chain(seg, torch.stack(rows, dim=-1), n)
+    h_data = hg[:, :36].reshape(n, 6, 6)
+    g_data = hg[:, 36:]
     data_loss = 0.5 * torch.sum(weight * residuals**2)
     return h_data, g_data, data_loss
 
@@ -306,9 +310,9 @@ class RowShard(NamedTuple):
     """A rank's slab of the frame: rows [row0, row0 + slab height) of a
     frame ``height`` rows tall. ``budget``: how many of its covered pixels
     the face term may keep under the frame's compaction cap (None: all up
-    to the cap). ``chain(acc, index, rows)``: adds the slab's rows onto the
-    sums of the ranks before it, in rank order, and returns the frame's
-    sums (``parallel/spmd.py::chained_index_add``)."""
+    to the cap). ``chain(seg, rows, num_segments)``: adds the slab's rows
+    onto the sums of the ranks before it, in rank order, and returns the
+    frame's sums (``parallel/spmd.py::chained_segment_sum``)."""
 
     row0: int
     height: int
@@ -530,7 +534,7 @@ def data_normal_equations(
         n_covered = torch.sum(counts)
         budget = None if cap is None else torch.clamp(cap - torch.sum(counts[:rank]), min=0).to(torch.int64)
         kwargs["shard"] = RowShard(
-            row0, h, budget, lambda acc, index, rows: spmd.chained_index_add(acc, index, rows, group)
+            row0, h, budget, lambda seg, rows, n: spmd.chained_segment_sum(rows, seg, n, group)
         )
     h_data, g_data, data_loss = _DATA_TERMS[impl](
         pos_v, rot_v, trans_v, canonical_vertices, canonical_normals, canonical_triangles,

@@ -5,9 +5,10 @@ Per iteration: data residuals [flow-u, flow-v, depth] per correspondence with
 jacobians with respect to its 4 anchor nodes' axis-angle + translation
 deltas (``torch.func``: ``vmap(jacrev)``), ARAP residuals over the flat graph
 edges (analytic jacobians), A = J^T J + lm I and b = -J^T r assembled per
-node pair (``index_add_`` of the [M, 4, 4, 6, 6] anchor-pair blocks into
-[N * N, 6, 6]), a dense solve and the axis-angle update. The dense [3M x 6N]
-jacobian is never formed. A step whose factorization fails (``lu_factor_ex``
+node pair (one ``ops/segment_sum.py`` sum of the [M, 4, 4, 6, 6]
+anchor-pair blocks and the edges' blocks into [N * N, 6, 6], in a fixed
+order on the card), a dense solve and the axis-angle update. The dense
+[3M x 6N] jacobian is never formed. A step whose factorization fails (``lu_factor_ex``
 reports it in ``info``), comes out non-finite or trips the optional
 condition-number cutoff marks the solve invalid and freezes the transforms;
 nothing syncs with the host.
@@ -27,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from dynamicfuion_python_tpu_torch.ops.linalg.rodrigues import axis_angle_to_matrix, skew
+from dynamicfuion_python_tpu_torch.ops.segment_sum import segment_sum
 from dynamicfuion_python_tpu_torch.ops.warp import gather_rows
 
 
@@ -160,7 +162,11 @@ def optimize_point_cloud_alignment(
     safe_anchor = source_anchors.clamp(min=0).long()
     anchor_w = torch.where(source_anchors >= 0, source_anchor_weights, 0.0)
     anchor_nodes = gather_rows(graph_nodes, safe_anchor)  # [M, 4, 3]
-    seg = (safe_anchor[:, :, None] * n + safe_anchor[:, None, :]).reshape(-1)
+    # the segments of the system's rows: anchor pairs, then the edges' four
+    # blocks (node pair i * n + j); anchors, then the edges' two nodes
+    pair_seg = (safe_anchor[:, :, None] * n + safe_anchor[:, None, :]).reshape(-1)
+    h_seg = torch.cat([pair_seg, i_idx * n + i_idx, i_idx * n + j_idx, j_idx * n + i_idx, j_idx * n + j_idx])
+    g_seg = torch.cat([safe_anchor.reshape(-1), i_idx, j_idx])
     cw = correspondence_weights
     zero_delta = torch.zeros((4, 6), dtype=dtype, device=dev)
     eye = torch.eye(6 * n, dtype=dtype, device=dev)
@@ -176,14 +182,6 @@ def optimize_point_cloud_alignment(
         jac = jac * cw[:, None, None, None]
         res_w = res * cw[:, None]
 
-        # data J^T J: anchor-pair blocks summed into [N, N, 6, 6]
-        pair_blocks = torch.einsum("mrka,mrlb->mklab", jac, jac)  # [M, 4, 4, 6, 6]
-        h = torch.zeros((n * n, 6, 6), dtype=dtype, device=dev)
-        h.index_add_(0, seg, pair_blocks.reshape(-1, 6, 6))
-        h = h.reshape(n, n, 6, 6)
-        g = torch.zeros((n, 6), dtype=dtype, device=dev)
-        g.index_add_(0, safe_anchor.reshape(-1), -torch.einsum("mrka,mr->mka", jac, res_w).reshape(-1, 6))
-
         # ARAP: J_i = [jrot | w I], J_j = [0 | -w I]
         e_res, e_jrot, e_w = _edge_residual_jacobian(graph_nodes, rot, trans, pairs, pair_w, config)
         e_res = e_res * edge_ok[:, None]
@@ -192,18 +190,24 @@ def optimize_point_cloud_alignment(
         j_i = torch.cat([e_jrot, e_w[:, None, None] * eye3], dim=-1)  # [E, 3, 6]
         j_j = torch.cat([torch.zeros_like(e_jrot), -e_w[:, None, None] * eye3], dim=-1)
         blocks_ij = torch.einsum("eab,eac->ebc", j_i, j_j)
-        for blk, ai, aj in (
-            (torch.einsum("eab,eac->ebc", j_i, j_i), i_idx, i_idx),
-            (blocks_ij, i_idx, j_idx),
-            (blocks_ij.transpose(-1, -2), j_idx, i_idx),
-            (torch.einsum("eab,eac->ebc", j_j, j_j), j_idx, j_idx),
-        ):
-            h = h.index_put((ai, aj), blk, accumulate=True)
-        g = g.index_add(0, i_idx, -torch.einsum("eab,ea->eb", j_i, e_res))
-        g = g.index_add(0, j_idx, -torch.einsum("eab,ea->eb", j_j, e_res))
+
+        # J^T J and -J^T r in one sum each: the data term's anchor-pair
+        # blocks, then the ARAP blocks (ii, ij, ji, jj), into [N * N, 6, 6]
+        h = segment_sum(torch.cat([
+            torch.einsum("mrka,mrlb->mklab", jac, jac).reshape(-1, 6, 6),
+            torch.einsum("eab,eac->ebc", j_i, j_i),
+            blocks_ij,
+            blocks_ij.transpose(-1, -2),
+            torch.einsum("eab,eac->ebc", j_j, j_j),
+        ]), h_seg, n * n)
+        g = segment_sum(torch.cat([
+            -torch.einsum("mrka,mr->mka", jac, res_w).reshape(-1, 6),
+            -torch.einsum("eab,ea->eb", j_i, e_res),
+            -torch.einsum("eab,ea->eb", j_j, e_res),
+        ]), g_seg, n)
 
         # dense system; a failed factorization counts as a non-finite step
-        h_dense = h.permute(0, 2, 1, 3).reshape(6 * n, 6 * n) + config.lm_factor * eye
+        h_dense = h.reshape(n, n, 6, 6).permute(0, 2, 1, 3).reshape(6 * n, 6 * n) + config.lm_factor * eye
         g_flat = g.reshape(-1)
         if config.check_condition_num:
             # a guard only: the eigenvalues feed a boolean, never a gradient

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from dynamicfuion_python_tpu_torch.models.pwcnet import to_nchw, to_nhwc
+from dynamicfuion_python_tpu_torch.models.pwcnet import PhaseConvTranspose2d, to_nchw, to_nhwc
 
 FEATURES2_CHANNELS = 565
 INPUT_CHANNELS = 12
@@ -32,8 +32,8 @@ class ResBlock(nn.Module):
 class MaskNet(nn.Module):
     def __init__(self):
         super().__init__()
-        self.upconv1 = nn.ConvTranspose2d(FEATURES2_CHANNELS, 32, 4, stride=2, padding=1)
-        self.upconv2 = nn.ConvTranspose2d(32, 16, 4, stride=2, padding=1)
+        self.upconv1 = PhaseConvTranspose2d(FEATURES2_CHANNELS, 32)
+        self.upconv2 = PhaseConvTranspose2d(32, 16)
         self.model = nn.Sequential(
             nn.Sequential(nn.Sequential(nn.Conv2d(16 + INPUT_CHANNELS, 16, 3, padding=1), nn.ReLU())),
             ResBlock(16),

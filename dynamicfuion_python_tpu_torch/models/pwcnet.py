@@ -75,6 +75,39 @@ def _decoder_in_channels(level: int) -> int:
     return COST_CHANNELS + EXTRACTOR_WIDTHS[level - 1] + 2 + 2
 
 
+class PhaseConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d(in, out, 4, stride=2, padding=1)``, PWC-Net's and
+    MaskNet's 2x upsampling. On the CPU it is that module's forward. On the
+    card it is four ordinary 2x2 convolutions, one per output phase (output
+    row 2m + r reads input rows m - 1, m with taps 3, 1 when r = 0 and m,
+    m + 1 with taps 2, 0 when r = 1; columns alike), interleaved: cuDNN runs
+    a transposed convolution as its backward-data pass, whose default
+    algorithm differed from run to run on an H100 and whose deterministic
+    one took ~5 ms a call at PWC-Net's shapes, where a forward convolution
+    repeats bit for bit."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(in_channels, out_channels, 4, stride=2, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.device.type == "cpu":
+            return super().forward(x)
+        return upsample_by_phases(x, self.weight, self.bias)
+
+
+def upsample_by_phases(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+    """``F.conv_transpose2d(x, weight, bias, stride=2, padding=1)`` for a
+    4x4 ``weight`` [Cin, Cout, 4, 4] as four 2x2 ``conv2d`` over the phases
+    of the output -> [B, Cout, 2H, 2W]."""
+    b, _, h, w = x.shape
+    taps = weight.transpose(0, 1).flip(-2, -1)  # [Cout, Cin, 4, 4]: taps 3, 2, 1, 0
+    rows = []
+    for ry in (0, 1):
+        cols = [F.conv2d(F.pad(x, (1 - rx, rx, 1 - ry, ry)), taps[:, :, ry::2, rx::2], bias) for rx in (0, 1)]
+        rows.append(torch.stack(cols, dim=-1))  # [B, Cout, H, W, 2]
+    return torch.stack(rows, dim=3).reshape(b, -1, 2 * h, 2 * w)
+
+
 class Decoder(nn.Module):
     """One pyramid level's flow decoder with dense connections."""
 
@@ -83,10 +116,8 @@ class Decoder(nn.Module):
         self.level = level
         c_in = _decoder_in_channels(level)
         if level < 6:
-            self.moduleUpflow = nn.ConvTranspose2d(2, 2, 4, stride=2, padding=1)
-            self.moduleUpfeat = nn.ConvTranspose2d(
-                _decoder_in_channels(level + 1) + sum(DECODER_WIDTHS), 2, 4, stride=2, padding=1
-            )
+            self.moduleUpflow = PhaseConvTranspose2d(2, 2)
+            self.moduleUpfeat = PhaseConvTranspose2d(_decoder_in_channels(level + 1) + sum(DECODER_WIDTHS), 2)
         for word, c in zip(_WORDS, DECODER_WIDTHS):
             setattr(self, f"module{word}", nn.Sequential(nn.Conv2d(c_in, c, 3, padding=1), nn.LeakyReLU(0.1)))
             c_in += c

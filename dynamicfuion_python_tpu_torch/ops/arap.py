@@ -8,8 +8,9 @@ Per hierarchy edge e = (i, j) (i finer, j coarser, virtual indices):
     d r_e / d rot_i = lam*w_e * skew(R_i (g_i - g_j)),
     d r_e / d t_i = lam*w_e * I,  d r_e / d t_j = -lam*w_e * I.
 
-The JAX package's one-hot contractions become ``index_add_`` into a dump
-row that is sliced off.
+The JAX package's one-hot contractions become ``ops/segment_sum.py``
+sums (``index_add_`` on the CPU, a fixed-order one-hot product on the
+card), rows with an out-of-range destination dropped.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from dynamicfuion_python_tpu_torch.ops.linalg.rodrigues import skew
+from dynamicfuion_python_tpu_torch.ops.segment_sum import segment_sum
 
 
 class ArapTerm(NamedTuple):
@@ -64,14 +66,6 @@ def edge_weights_variable(edges, node_coverage_weights_squared_virtual) -> torch
     return torch.maximum(cov[edges[:, 0].long()], cov[edges[:, 1].long()])
 
 
-def _scatter_rows(dest: torch.Tensor, rows: torch.Tensor, size: int) -> torch.Tensor:
-    """Sum ``rows`` [E, C] into ``size`` rows by ``dest``; entries with dest
-    == size land in a dump row that is dropped."""
-    out = torch.zeros((size + 1, rows.shape[1]), dtype=rows.dtype, device=rows.device)
-    out.index_add_(0, dest, rows)
-    return out[:size]
-
-
 def assemble_arap_normal_equations(
     term: ArapTerm, edges, num_nodes: int, arrow_base: int, max_wing_degree: int,
 ):
@@ -109,17 +103,17 @@ def assemble_arap_normal_equations(
     gi_rot = -torch.einsum("eab,ea->eb", jr, r)
     gi_trans = -c[:, None] * r
     gj_trans = c[:, None] * r
-    g_rot = _scatter_rows(i, gi_rot, num_nodes)
-    g_trans = _scatter_rows(i, gi_trans, num_nodes) + _scatter_rows(j, gj_trans, num_nodes)
+    g_rot = segment_sum(gi_rot, i, num_nodes)
+    g_trans = segment_sum(gi_trans, i, num_nodes) + segment_sum(gj_trans, j, num_nodes)
     g = torch.cat([g_rot, g_trans], dim=-1)
 
     # diagonal blocks: stem rows and corner rows
-    stem_diag = _scatter_rows(torch.where(i < n0, i, n0), h_ii, n0).reshape(n0, 6, 6)
+    stem_diag = segment_sum(h_ii, i, n0).reshape(n0, 6, 6)  # corner rows dropped
     nc1 = max(nc, 1)
     ci_d = torch.where((i >= n0) & (nc > 0), i - n0, nc1)
     cj_d = torch.where((j >= n0) & (nc > 0), j - n0, nc1)
     corner_blocks_diag = (
-        _scatter_rows(ci_d, h_ii, nc1) + _scatter_rows(cj_d, h_jj, nc1)
+        segment_sum(h_ii, ci_d, nc1) + segment_sum(h_jj, cj_d, nc1)
     ).reshape(nc1, 6, 6)
 
     # wing: edges with a stem source, slot = rank within the source's edges
@@ -135,7 +129,7 @@ def assemble_arap_normal_equations(
     slot[sorted_order] = idx - first
     ok = is_stem_edge & (slot < max_wing_degree)
     wid = torch.where(ok, i * max_wing_degree + slot, n0 * max_wing_degree)
-    wing = _scatter_rows(wid, h_ij, n0 * max_wing_degree).reshape(n0, max_wing_degree, 6, 6)
+    wing = segment_sum(h_ij, wid, n0 * max_wing_degree).reshape(n0, max_wing_degree, 6, 6)
     wing_cols = torch.full((n0 * max_wing_degree + 1,), -1, dtype=torch.int32, device=dev)
     wing_cols[wid] = torch.where(ok, j - n0, -1).to(torch.int32)
     wing_cols = wing_cols[: n0 * max_wing_degree].reshape(n0, max_wing_degree)
@@ -145,7 +139,7 @@ def assemble_arap_normal_equations(
     ci = torch.clamp(i - n0, min=0)
     cj = torch.clamp(j - n0, min=0)
     flat_idx = torch.where(coarse_edge, ci * nc1 + cj, nc1 * nc1)
-    off = _scatter_rows(flat_idx, h_ij, nc1 * nc1).reshape(nc1, nc1, 6, 6)
+    off = segment_sum(h_ij, flat_idx, nc1 * nc1).reshape(nc1, nc1, 6, 6)
     corner = off.permute(0, 2, 1, 3) + off.permute(1, 3, 0, 2)
     diag_idx = torch.arange(nc1, device=dev)
     corner[diag_idx, :, diag_idx, :] += corner_blocks_diag

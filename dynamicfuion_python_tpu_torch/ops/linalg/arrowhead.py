@@ -11,7 +11,8 @@ Algorithm: invert D blockwise, W = D^-1 B, Schur complement S = C - B^T W,
 dense Cholesky solve of S, back-substitution. The wing is stored padded
 row-wise (``wing_blocks`` [N0, K, 6, 6], ``wing_cols`` [N0, K], -1 = empty).
 The one-hot contractions the TPU version uses for its scatters are
-``index_add_`` here.
+``ops/segment_sum.py`` sums here (``index_add_`` on the CPU, a
+fixed-order one-hot product on the card).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from dynamicfuion_python_tpu_torch.ops.linalg.block_ops import (
     _lower_mask,
     invert_spd_blocks,
 )
+from dynamicfuion_python_tpu_torch.ops.segment_sum import segment_sum
 
 #: escalation steps of the corner damping (first try is undamped)
 _MAX_ESCALATIONS = 4
@@ -90,12 +92,8 @@ def _wing_t_times(
     """B^T v for stem block-vectors v [N0, B] -> [Nc, B]."""
     contrib = torch.einsum("nkba,nb->nka", wing, stem_vectors)
     flat = contrib.reshape(-1, contrib.shape[-1])
-    cols = wing_cols.reshape(-1).long()
-    # empty slots land in a dump row that is sliced off
-    dest = torch.where(cols >= 0, cols, nc)
-    out = torch.zeros((nc + 1, flat.shape[-1]), dtype=flat.dtype, device=flat.device)
-    out.index_add_(0, dest, flat)
-    return out[:nc]
+    # empty slots (-1) are dropped
+    return segment_sum(flat, wing_cols.reshape(-1).long(), nc)
 
 
 def _cholesky_with_escalating_damping(matrix: torch.Tensor):
@@ -174,11 +172,7 @@ def solve_block_sparse_arrowhead(
     flat_idx = torch.where(
         pair_valid, j1.clamp(min=0) * nc + j2.clamp(min=0), nc * nc
     ).reshape(-1).long()
-    schur_blocks = torch.zeros(
-        (nc * nc + 1, b * b), dtype=flat_pair.dtype, device=flat_pair.device
-    )
-    schur_blocks.index_add_(0, flat_idx, flat_pair)
-    schur_blocks = schur_blocks[: nc * nc].reshape(nc, nc, b, b)
+    schur_blocks = segment_sum(flat_pair, flat_idx, nc * nc).reshape(nc, nc, b, b)
     schur = matrix.corner - schur_blocks.permute(0, 2, 1, 3).reshape(nc * b, nc * b)
 
     # 4. corner solve S x_c = b_c - B^T D^-1 b_s

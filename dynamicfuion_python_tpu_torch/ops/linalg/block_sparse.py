@@ -3,8 +3,9 @@
 
 Matrices are a list of dense ``b x b`` blocks plus int block coordinates
 (block-row, block-col), -1 marking an inactive entry. Sums over blocks are
-``index_add_`` into one extra row that is dropped (the JAX package's
-``segment_sum`` over ``num_segments + 1``); a block-sparse x block-sparse
+``ops/segment_sum.py`` sums with the dropped entries in segment
+``num_segments`` (the JAX package's ``segment_sum`` over
+``num_segments + 1``); a block-sparse x block-sparse
 product takes its output coordinate list explicitly (the reference's
 "breadboard" structure). The fitter's arrowhead solver
 (``ops/linalg/arrowhead.py``) stays the production path; these ops cover the
@@ -15,13 +16,7 @@ from __future__ import annotations
 
 import torch
 
-
-def _segment_sum(values: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """Sum rows of ``values`` by ``seg`` in [0, num_segments]; row
-    ``num_segments`` collects the dropped entries and is cut off."""
-    out = torch.zeros((num_segments + 1, *values.shape[1:]), dtype=values.dtype, device=values.device)
-    out.index_add_(0, seg.long(), values)
-    return out[:num_segments]
+from dynamicfuion_python_tpu_torch.ops.segment_sum import segment_sum
 
 
 def _active(coords: torch.Tensor) -> torch.Tensor:
@@ -35,7 +30,7 @@ def block_sparse_to_dense(blocks: torch.Tensor, coords: torch.Tensor, shape_bloc
     b = blocks.shape[1]
     ok = _active(coords)
     seg = torch.where(ok, coords[:, 0].long() * cols + coords[:, 1].long(), rows * cols)
-    out = _segment_sum(torch.where(ok[:, None, None], blocks, 0.0), seg, rows * cols)
+    out = segment_sum(torch.where(ok[:, None, None], blocks, 0.0), seg, rows * cols)
     return out.reshape(rows, cols, b, b).permute(0, 2, 1, 3).reshape(rows * b, cols * b)
 
 
@@ -43,14 +38,14 @@ def block_sums(blocks: torch.Tensor, segment_ids: torch.Tensor, num_segments: in
     """Sum blocks by id (-1 drops the block) -> [num_segments, b, b]."""
     ok = segment_ids >= 0
     seg = torch.where(ok, segment_ids, num_segments)
-    return _segment_sum(torch.where(ok[:, None, None], blocks, 0.0), seg, num_segments)
+    return segment_sum(torch.where(ok[:, None, None], blocks, 0.0), seg, num_segments)
 
 
 def get_diagonal_blocks(blocks: torch.Tensor, coords: torch.Tensor, num_diag: int) -> torch.Tensor:
     """The diagonal blocks, summed per block row, as dense [num_diag, b, b]."""
     on_diag = (coords[:, 0] == coords[:, 1]) & (coords[:, 0] >= 0)
     seg = torch.where(on_diag, coords[:, 0], num_diag)
-    return _segment_sum(torch.where(on_diag[:, None, None], blocks, 0.0), seg, num_diag)
+    return segment_sum(torch.where(on_diag[:, None, None], blocks, 0.0), seg, num_diag)
 
 
 def transpose_blocks(blocks: torch.Tensor, coords: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -90,7 +85,7 @@ def matmul_block_sparse_dense(
     products = torch.einsum("nab,nbm->nam", blocks, x[safe[:, 1]])
     products = torch.where(ok[:, None, None], products, 0.0)
     seg = torch.where(ok, safe[:, 0], num_block_rows)
-    out = _segment_sum(products, seg, num_block_rows).reshape(num_block_rows * b, -1)
+    out = segment_sum(products, seg, num_block_rows).reshape(num_block_rows * b, -1)
     return out[:, 0] if vector else out
 
 
@@ -123,4 +118,4 @@ def matmul_block_sparse(
     ok = pair_ok.reshape(-1) & (sorted_keys[pos] == key_pair)
     products = torch.einsum("pab,qbc->pqac", a_blocks, b_blocks).reshape(na * nb, a_blocks.shape[1], b_blocks.shape[2])
     seg = torch.where(ok, slot, no)
-    return _segment_sum(torch.where(ok[:, None, None], products, 0.0), seg, no)
+    return segment_sum(torch.where(ok[:, None, None], products, 0.0), seg, no)

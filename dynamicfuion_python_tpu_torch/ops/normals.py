@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from dynamicfuion_python_tpu_torch.ops.segment_sum import segment_sum
+
 
 def _normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     norm = torch.linalg.norm(v, dim=-1, keepdim=True)
@@ -44,10 +46,9 @@ def triangle_normals(
 
 
 def mesh_vertex_normals(vertices: torch.Tensor, triangles: torch.Tensor) -> torch.Tensor:
-    """Area-weighted vertex normals."""
+    """Area-weighted vertex normals: each face's normal summed into its
+    three vertices, first corners first (one ``segment_sum``)."""
     face_n = triangle_normals(vertices, triangles, normalized=False)
-    n = torch.zeros_like(vertices)
     t = triangles.long()
-    for corner in range(3):
-        n.index_add_(0, t[:, corner], face_n)
+    n = segment_sum(face_n.repeat(3, 1), t.T.reshape(-1), vertices.shape[0])
     return _normalize(n)

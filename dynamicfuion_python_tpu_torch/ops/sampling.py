@@ -5,7 +5,7 @@ Mean-grid downsampling (the average of the points of each occupied grid
 cell), "median"-grid subsampling (the index of the point closest to its
 cell's mean, the hierarchy's node-decimation primitive) and their two-pass
 radius variants. Occupied cells are found by a stable sort of the cell ids
-and head flags; per-cell sums are ``index_add_`` and per-cell minima
+and head flags; per-cell sums are ``ops/segment_sum.py`` sums and per-cell minima
 ``scatter_reduce``. Outputs keep the JAX contract: padded to the input size
 (``PAD_VALUE`` for points, -1 for indices) plus a valid count, cells in
 ascending cell-id order.
@@ -13,8 +13,9 @@ ascending cell-id order.
 The card and the CPU give the same counts and indices: the cell size
 divides as a tensor (CUDA turns a division by a Python scalar into a
 multiplication by its reciprocal, which floors differently at cell
-borders), the per-cell sums accumulate in f64 (the card's atomics add in
-any order), and squared distances are separate multiplies and adds.
+borders), the per-cell sums accumulate in f64 (the card adds in another
+order than the CPU), and squared distances are separate multiplies and
+adds.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from dynamicfuion_python_tpu_torch.ops.segment_sum import segment_sum
 
 #: padding value of unused output slots
 PAD_VALUE = float("nan")
@@ -69,11 +72,8 @@ def _segment_layout(ids: torch.Tensor):
 
 
 def _segment_means(sorted_points, seg, n: int) -> torch.Tensor:
-    dev = sorted_points.device
-    sums = torch.zeros((n, 3), dtype=torch.float64, device=dev)
-    sums.index_add_(0, seg, sorted_points.double())
-    nums = torch.zeros((n,), dtype=torch.float64, device=dev)
-    nums.index_add_(0, seg, torch.ones((seg.shape[0],), dtype=torch.float64, device=dev))
+    sums = segment_sum(sorted_points.double(), seg, n)
+    nums = segment_sum(torch.ones((seg.shape[0],), dtype=torch.float64, device=sorted_points.device), seg, n)
     return (sums / torch.clamp(nums, min=1.0)[:, None]).to(sorted_points.dtype)
 
 

@@ -7,14 +7,15 @@ collectives. Here each rank is a process and every collective is explicit:
   - pixel rows of the observed frame split into one contiguous slab per
     rank (:func:`shard_pixel_rows`); each rank computes the data term's
     rows for its own pixels and adds them onto the sums of the ranks before
-    it (:func:`chained_index_add`); the odometry's sums meet in one
+    it (:func:`chained_segment_sum`); the odometry's sums meet in one
     ``all_reduce`` (:func:`all_reduce_sum`);
   - the TSDF block table splits by slot (:func:`shard_blocks`) for
     integration; each rank sends its updated blocks to the others
     (:func:`broadcast_slices`);
   - small replicated state (warp field, pose, canonical mesh) is broadcast
     from rank 0 (:func:`replicate`), so that every rank holds the same bits
-    even where the card's atomics sum in a different order on each rank.
+    even where a rank's own work differs from the others' (its slab's rows
+    summed onto the chain at its place).
 
 Only ``all_reduce`` and ``broadcast`` are used: the two collectives the gloo
 backend offers on CUDA tensors (two ranks on one card) as NCCL does (a card
@@ -27,6 +28,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from dynamicfuion_python_tpu_torch.ops.segment_sum import segment_sum
 from dynamicfuion_python_tpu_torch.utils.device import resolve_device
 
 
@@ -123,18 +125,22 @@ def replicate(tensors, group, src: int = 0) -> list[torch.Tensor]:
     return out
 
 
-def chained_index_add(acc: torch.Tensor, index: torch.Tensor, rows: torch.Tensor, group) -> torch.Tensor:
-    """``acc.index_add_(0, index, rows)`` over every rank's rows, added in
-    rank order: each rank adds its rows onto the running sums of the ranks
-    before it and ``broadcast``s them on; every rank returns the sums of all
-    rows. Where the ranks hold consecutive parts of one process's rows (row
-    slabs of a frame), the sums equal that process's bit for bit on the CPU,
-    whose ``index_add_`` adds rows in index order. Partial sums added at the
-    end round differently, and the fit grows that rounding frame by frame
-    until other voxels are integrated."""
+def chained_segment_sum(rows: torch.Tensor, seg: torch.Tensor, num_segments: int, group) -> torch.Tensor:
+    """``segment_sum(rows, seg, num_segments)`` over every rank's rows,
+    added in rank order: each rank adds its rows onto the running sums of
+    the ranks before it and ``broadcast``s them on; every rank returns the
+    sums of all rows. Where the ranks hold consecutive parts of one
+    process's rows (row slabs of a frame), the sums equal that process's
+    bit for bit on the CPU, whose ``index_add_`` adds rows in index order.
+    On the card each rank's part is one fixed-order sum added onto the
+    chain, so the result repeats bit for bit from run to run but rounds
+    differently from one process's single sum. Partial sums added at the
+    end round differently too, and the fit grows that rounding frame by
+    frame until other voxels are integrated."""
+    acc = rows.new_zeros((num_segments, *rows.shape[1:]))
     for r in range(group_size(group)):
         if r == group_rank(group):
-            acc.index_add_(0, index, rows)
+            acc = segment_sum(rows, seg, num_segments, acc=acc).contiguous()
         dist.broadcast(acc, src=_global_rank(group, r), group=group)
     return acc
 

@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernels against their plain PyTorch versions, on the
-card. Every test here needs a CUDA device and skips without one; the file
+"""The hand-written CUDA kernels against their plain PyTorch versions, and
+the segment sums' card forms against the CPU's ``index_add_``, on the card.
+Every test here needs a CUDA device and skips without one; the file
 imports nothing of JAX, so it runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
@@ -12,6 +13,7 @@ import torch
 from dynamicfuion_python_tpu_torch.ops import mesh_expand as me
 from dynamicfuion_python_tpu_torch.ops import native
 from dynamicfuion_python_tpu_torch.ops import rasterize as rz
+from dynamicfuion_python_tpu_torch.ops import segment_sum as ss
 
 INTR = np.asarray([[672.0, 0.0, 320.0], [0.0, 672.0, 240.0], [0.0, 0.0, 1.0]], np.float32)
 SIZE = (480, 640)
@@ -198,3 +200,97 @@ def test_binned_rasterizer_on_the_card_matches_the_cpu(card):
     )[:2], SIZE)
     assert torch.equal(gpu.face_indices.cpu(), cpu.face_indices)
     assert float((gpu.depths.cpu() - cpu.depths).abs().max()) <= 1e-5
+
+
+# the segment sums at the main path's shapes (the 480x640 slice: 126 nodes,
+# 117 stems and 9 corner nodes; the DeformNet prior on the 448x640 plane):
+# (rows, row shape, segments)
+SUM_SITES = {
+    "data_term": (2_211_840, (42,), 126),
+    "arap_blocks": (486, (36,), 117),
+    "arap_gradient": (486, (3,), 126),
+    "arap_corner": (486, (36,), 9),
+    "schur_pairs": (1872, (36,), 81),
+    "wing_t": (468, (6,), 9),
+    "mesh_vertex_normals": (196_608, (3,), 32_768),
+    "prior_system": (4_591_552, (6, 6), 15_876),
+    "prior_gradient": (1_148_896, (6,), 126),
+    "deform_net_weights": (1_146_880, (), 126),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("site", sorted(SUM_SITES))
+def test_segment_sums_repeat_bit_for_bit(card, site):
+    """``segment_sum`` (the form the site gets) and each card form that
+    applies, 20 calls each on seeded inputs (a tenth of the rows dropped
+    and NaN): bit-equal every time, and within 1e-6 of the largest entry of
+    the CPU's ``index_add_`` sum accumulated in f64."""
+    rows, shape, n = SUM_SITES[site]
+    gen = torch.Generator().manual_seed(11)
+    values = torch.randn((rows, *shape), generator=gen)
+    seg = torch.randint(0, n, (rows,), generator=gen)
+    seg[::10] = n
+    values[::10] = float("nan")
+    want = ss._index_add_sum(values.double(), seg, n)
+    v, s = values.to(card), seg.to(card)
+    forms = [ss.segment_sum, ss.segment_sum_sorted]
+    if n <= ss.ONEHOT_MAX_SEGMENTS:
+        forms.append(ss.segment_sum_onehot)
+    for form in forms:
+        first = form(v, s, n)
+        for _ in range(19):
+            assert torch.equal(form(v, s, n), first), form.__name__
+        err = float((first.double().cpu() - want).abs().max())
+        assert err <= 1e-6 * float(want.abs().max()), (form.__name__, err)
+
+
+@pytest.mark.gpu
+def test_onehot_sum_runs_without_tf32(card):
+    """With TF32 turned on globally the one-hot product still rounds as
+    FP32 (TF32 would be ~1e-3 off), and the flag is the caller's again
+    after the call."""
+    rows, shape, n = SUM_SITES["data_term"]
+    gen = torch.Generator().manual_seed(12)
+    values, seg = torch.randn((rows // 8, *shape), generator=gen), torch.randint(0, n, (rows // 8,), generator=gen)
+    want = ss._index_add_sum(values.double(), seg, n)
+    previous = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = ss.segment_sum_onehot(values.to(card), seg.to(card), n)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = previous
+    assert float((got.double().cpu() - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+def test_phase_upsampling_repeats_bit_for_bit(card):
+    """Every 2x upsampling of PWC-Net's decoders and of MaskNet at the
+    prior's 448x640 input, on the card (cuDNN TF32 off, as DeformNet runs
+    it): 20 calls bit-equal, and within 1e-5 of the largest entry of the
+    CPU's transposed convolution in f64 (FP32 sums of up to 2,388 products:
+    1.4e-6 measured on an H100; TF32 would be ~1e-3)."""
+    from dynamicfuion_python_tpu_torch.models.deform_net import fp32_convolutions
+    from dynamicfuion_python_tpu_torch.models.mask_net import FEATURES2_CHANNELS
+    from dynamicfuion_python_tpu_torch.models.pwcnet import Decoder, PhaseConvTranspose2d
+
+    layers = []
+    for level in range(2, 6):  # a decoder upsamples the level above it
+        cin = Decoder(level).moduleUpfeat.in_channels
+        size = (448 >> (level + 1), 640 >> (level + 1))
+        layers += [(2, 2, size), (cin, 2, size)]
+    layers += [(FEATURES2_CHANNELS, 32, (112, 160)), (32, 16, (224, 320))]
+    gen = torch.Generator().manual_seed(13)
+    for cin, cout, (h, w) in layers:
+        module = PhaseConvTranspose2d(cin, cout)
+        x = torch.randn((1, cin, h, w), generator=gen)
+        with torch.no_grad(), fp32_convolutions():  # as DeformNet runs them: TF32 off
+            want = torch.nn.functional.conv_transpose2d(
+                x.double(), module.weight.double(), module.bias.double(), stride=2, padding=1)
+            module, xc = module.to(card), x.to(card)
+            first = module(xc)
+            for _ in range(19):
+                assert torch.equal(module(xc), first), (cin, cout, h, w)
+        err = float((first.double().cpu() - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), (cin, cout, h, w, err)

@@ -34,6 +34,86 @@ def test_no_jax_imports():
             assert top not in FORBIDDEN, f"{path.relative_to(ROOT)} imports {mod}"
 
 
+# float accumulations that order their additions by thread timing on the
+# card: the package sums through ops/segment_sum.py only
+ATOMIC_SUMS = ("index_add", "index_add_", "scatter_add", "scatter_add_")
+SEGMENT_SUM = PORT / "ops" / "segment_sum.py"
+
+
+def test_float_sums_go_through_segment_sum():
+    """No ``index_add(_)``, ``scatter_add(_)`` or ``accumulate=True`` in the
+    package outside ``ops/segment_sum.py``."""
+    found = []
+    for path in sorted(PORT.rglob("*.py")):
+        if path == SEGMENT_SUM:
+            continue
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            if isinstance(node, ast.Attribute) and node.attr in ATOMIC_SUMS:
+                found.append(f"{path.relative_to(ROOT)}:{node.lineno} .{node.attr}")
+            elif (isinstance(node, ast.keyword) and node.arg == "accumulate"
+                  and not (isinstance(node.value, ast.Constant) and node.value.value is False)):
+                found.append(f"{path.relative_to(ROOT)}:{node.lineno} accumulate=")
+    assert not found, found
+
+
+class _AtomicSumRecorder(torch.overrides.TorchFunctionMode):
+    """Records each call of an accumulating scatter on a floating tensor
+    with the innermost port file on the Python stack (``None``: no port
+    frame)."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = getattr(func, "__name__", "")
+        accumulate = kwargs.get("accumulate", args[3] if name in ("index_put", "index_put_") and len(args) > 3 else
+                                args[2] if name == "put_" and len(args) > 2 else False)
+        if (name in ATOMIC_SUMS or accumulate is True) and any(
+                isinstance(a, torch.Tensor) and a.is_floating_point() for a in args):
+            frame, where = sys._getframe(1), None
+            while frame is not None and where is None:
+                path = Path(frame.f_code.co_filename)
+                if PORT in path.parents:
+                    where = (path, frame.f_lineno)
+                frame = frame.f_back
+            self.calls.append((name, where))
+        return func(*args, **kwargs)
+
+
+def test_no_float_atomics_run_outside_segment_sum(tmp_path):
+    """A 64x96 main-path frame and one prior frame (a seeded DeformNet at
+    64x128) on the CPU: every accumulating scatter on a floating tensor is
+    called from ``ops/segment_sum.py``."""
+    from dynamicfuion_python_tpu_torch.apps.fusion_pipeline import FusionPipeline
+    from dynamicfuion_python_tpu_torch.data.frame_sequence import SyntheticBendingPlaneSequence
+    from dynamicfuion_python_tpu_torch.models.deform_net import DeformNet, seeded_state_dict
+    from dynamicfuion_python_tpu_torch.settings import Parameters
+    from dynamicfuion_python_tpu_torch.utils.config import apply_overrides
+
+    small = ["tsdf.voxel_size=0.01", "tsdf.sdf_truncation_distance=0.04", "tsdf.initial_block_count=512",
+             "graph.node_coverage=0.12", "graph.layer_count=2", "graph.erosion_num_iterations=1",
+             "alignment.max_iteration_count=2", "fusion.far_clip_distance=2.0", "telemetry.print_runtime=false"]
+    path = tmp_path / "deform_net.pt"
+    torch.save(seeded_state_dict(DeformNet(), torch.Generator().manual_seed(0)), path)
+    runs = (([], (64, 96), 120.0),
+            (["fusion.use_neural_prior=true", f"fusion.prior_checkpoint={path}"], (64, 128), 90.0))
+    recorder = _AtomicSumRecorder()
+    for overrides, size, focal in runs:
+        params = apply_overrides(Parameters(), small + overrides)
+        seq = SyntheticBendingPlaneSequence(frame_count=2, image_size=size, bend_per_frame=0.02, focal=focal)
+        f0, f1 = seq
+        pipe = FusionPipeline(params, seq.intrinsics, device="cpu")
+        pipe.initialize(f0.depth, f0.color)
+        with recorder:
+            pipe.process_frame(f1.depth, f1.color)
+    outside = [(name, where) for name, where in recorder.calls if where is not None and where[0] != SEGMENT_SUM]
+    assert not outside, outside
+    # the recorder saw the package's sums: the data term, ARAP, the prior's
+    assert sum(where is not None and where[0] == SEGMENT_SUM for _, where in recorder.calls) > 20
+
+
 def test_entry_points_need_a_card_unless_asked(monkeypatch):
     from dynamicfuion_python_tpu_torch.apps.fusion_pipeline import FusionPipeline
     from dynamicfuion_python_tpu_torch.models.voxel_block_grid import VoxelBlockGrid
