@@ -79,19 +79,23 @@ non-zero, on any failure):
      train()'s defaults (448x640 crop, batch 4, 128 nodes, 10,000 matches,
      3 GN iterations, SGD momentum 0.9), 5 steps of one repeated batch at lr
      1e-4: finite losses, the last below the first, the checkpoint reloads
-     bit-equal, the eval step's metrics finite; one step each of 0_flow,
-     2_mask (flow net bit-equal) and 3_refine, each trained net moving;
-     generate -> evaluate over the split, every metric finite (None only
-     where no pair has a valid node); one 1_solver step at 192x256, batch 1,
-     on the card and on the CPU from the same weights and batch with TF32
-     turned on globally beforehand: gradient hooks must read TF32 off for
-     cuBLAS and cuDNN throughout the step's backward (and on in the
-     control's), the loss and the gradients' relative L2 difference within
-     TRAIN_LOSS_RTOL / TRAIN_GRAD_RTOL. Printed, never
-     gated: step, forward and backward ms (CUDA events), data seconds per
-     batch, peak memory, the GN's share of the backward, one traced step,
-     the same step with TF32 left on (a control) and whether the card step
-     run twice repeats its loss and gradients bit for bit.
+     bit-equal, the eval step's metrics finite, and the same run again
+     leaves the same weights (state_dict digests equal); one step each of
+     0_flow, 2_mask (flow net bit-equal) and 3_refine, each trained net
+     moving; generate -> evaluate over the split, every metric finite (None
+     only where no pair has a valid node); one 1_solver step at 192x256,
+     batch 1, on the card and on the CPU from the same weights and batch
+     with TF32 turned on globally beforehand: gradient hooks must read TF32
+     off for cuBLAS and cuDNN and cuDNN deterministic throughout the step's
+     backward (and TF32 on in the control's), the loss and the gradients'
+     relative L2 difference within TRAIN_LOSS_RTOL / TRAIN_GRAD_RTOL; that
+     step and a 3_refine step each run twice on the card must repeat their
+     loss and every gradient bit for bit, and the graph of a card step must
+     hold the fixed-order gathers and upsampling (its backward node types
+     and counts printed). Printed, never gated: step, forward and backward
+     ms (CUDA events), data seconds per batch, peak memory, the GN's share
+     of the backward, one traced step and the same step with TF32 left on
+     (a control).
  15. sod: apps/sod.py's generate_masks with the reference's default model
      (U2NET at full width, seeded weights, 320x320 input) over four 480x640
      PNG colour frames in a temporary directory, TF32 turned on globally
@@ -1467,11 +1471,12 @@ def _stage_model(stage: str, state: dict, device, gn_iterations: int | None = No
 
 def _one_step(stage: str, state: dict, batch_np: dict, device, tf32_backward: bool = False):
     """One SGD step (lr 1e-4) of ``stage`` from ``state`` on a numpy batch:
-    (loss, {name: gradient on the CPU}, backward TF32 flags). The flags are
-    the set of (cuBLAS, cuDNN) ``allow_tf32`` pairs in force while the
-    backward computed each parameter's gradient, read by gradient hooks.
-    ``tf32_backward`` runs the forward and backward outside the step's
-    TF32-off block (the control)."""
+    (loss, {name: gradient on the CPU}, backward flags). The flags are the
+    set of (cuBLAS ``allow_tf32``, cuDNN ``allow_tf32``, cuDNN
+    ``deterministic``) triples in force while the backward computed each
+    parameter's gradient, read by gradient hooks. ``tf32_backward`` runs
+    the forward and backward outside the step's ``fp32_step`` block (the
+    control)."""
     import torch
 
     from dynamicfuion_python_tpu_torch.apps import train
@@ -1482,7 +1487,8 @@ def _one_step(stage: str, state: dict, batch_np: dict, device, tf32_backward: bo
     flags = set()
 
     def read_flags(grad):
-        flags.add((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32))
+        flags.add((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+                   torch.backends.cudnn.deterministic))
 
     hooks = [p.register_hook(read_flags) for p in model.parameters() if p.requires_grad]
     if tf32_backward:
@@ -1515,15 +1521,18 @@ def phase_train(smi: str) -> dict:
     bending patch, 4 pairs, PNG frames, closed-form optical and scene flow),
     its graphs and labels from create_graph_data.main, then train() at stage
     1_solver at the JAX train()'s defaults (5 steps of one repeated batch,
-    lr 1e-4, an eval step), one step each of 0_flow / 2_mask / 3_refine,
-    generate -> evaluate over the split, and one 1_solver step on the card
-    against the CPU at 192x256, batch 1. Returns the kernel launches of the
-    training path (the training path rasterizes nothing)."""
+    lr 1e-4, an eval step) twice, which must leave the same weights bit for
+    bit, one step each of 0_flow / 2_mask / 3_refine, generate -> evaluate
+    over the split, one 1_solver step on the card against the CPU at
+    192x256, batch 1, and that step and a 3_refine step each run twice on
+    the card, which must repeat bit for bit. Returns the kernel launches of
+    the training path (the training path rasterizes nothing)."""
     import numpy as np
     import torch
 
     from dynamicfuion_python_tpu_torch.apps import create_graph_data, evaluate, generate, train
     from dynamicfuion_python_tpu_torch.apps.profile_frame import device_us
+    from dynamicfuion_python_tpu_torch.apps.profile_train_step import compare_steps
     from dynamicfuion_python_tpu_torch.data.deform_dataset import LabeledDeformDataset
     from dynamicfuion_python_tpu_torch.data.synthetic_pairs import write_split
     from dynamicfuion_python_tpu_torch.ops import native
@@ -1560,6 +1569,15 @@ def phase_train(smi: str) -> dict:
         check(all(torch.equal(reloaded.state_dict()[k], v) for k, v in trained.items()),
               "train: the checkpoint does not reload bit-equal")
         row["checkpoint_bit_equal"] = True
+        # the same run again: every step's backward has a fixed order, so the
+        # weights after 5 steps are the same bits
+        again, again_losses = train.train(str(root), stage="1_solver", labeled=True, iterations=5, learning_rate=1e-4,
+                                          eval_every=5, checkpoint_dir=str(root / "ckpt_again"), training_config=cfg)
+        digests = [tensor_digest(list(trained.values())),
+                   tensor_digest([again.state_dict()[k] for k in trained])]
+        row["train_repeat"] = {"losses_equal": again_losses == losses, "state_dict_digests": digests}
+        check(digests[0] == digests[1], f"train: a second 5-step run left other weights: {digests}")
+        del again
 
         stages = {}
         for stage, frozen, trains in (("0_flow", (), ("flow_net",)), ("2_mask", ("flow_net",), ("mask_net",)),
@@ -1609,25 +1627,39 @@ def phase_train(smi: str) -> dict:
             tf32_loss, tf32_grads, tf32_flags = _one_step("1_solver", trained, batch, "cuda", tf32_backward=True)
         finally:
             torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = previous
-        # the step's own precision, read while its backward ran: TF32 off for
-        # cuBLAS and cuDNN; the control's hooks see it on
-        row["backward_tf32_flags"] = {"step": sorted(card_flags), "control": sorted(tf32_flags)}
-        check(card_flags == {(False, False)}, f"train: the step's backward ran with TF32 flags {sorted(card_flags)}")
-        check(tf32_flags == {(True, True)}, f"train: the control's backward ran with TF32 flags {sorted(tf32_flags)}")
+        # the step's own precision and algorithms, read while its backward
+        # ran: TF32 off for cuBLAS and cuDNN, cuDNN deterministic; the
+        # control's hooks see TF32 on
+        row["backward_flags"] = {"fields": ["matmul_tf32", "cudnn_tf32", "cudnn_deterministic"],
+                                 "step": sorted(card_flags), "control": sorted(tf32_flags)}
+        check(card_flags == {(False, False, True)}, f"train: the step's backward ran with flags {sorted(card_flags)}")
+        check({f[:2] for f in tf32_flags} == {(True, True)},
+              f"train: the control's backward ran with TF32 flags {sorted(tf32_flags)}")
         card = {"loss_rel": abs(card_loss - cpu_loss) / abs(cpu_loss), **_grad_diff(card_grads, cpu_grads)}
         row["card_vs_cpu"] = {**card, "image_size": list(PARITY_CROP), "loss_rtol": TRAIN_LOSS_RTOL,
                               "grad_rtol": TRAIN_GRAD_RTOL}
         check(card["finite"] and math.isfinite(card_loss), "train: non-finite card gradients")
         check(card["loss_rel"] <= TRAIN_LOSS_RTOL, f"train: card loss {card_loss} against CPU {cpu_loss}")
         check(card["grad_rel_l2"] <= TRAIN_GRAD_RTOL, f"train: card gradients against the CPU's: {card}")
-        # the same step twice on the card, never a gate: the forward's sums
-        # repeat, the backward's (autograd's index_add_ of the gathers) may not
-        row["card_step_repeat"] = {
-            "loss_bit_equal": repeat_loss == card_loss,
-            "gradients_bit_equal": bit_equal([card_grads[k] for k in sorted(card_grads)],
-                                             [repeat_grads[k] for k in sorted(card_grads)]),
-            "grad_max_abs_diff": max(float((repeat_grads[k] - g).abs().max()) for k, g in card_grads.items()),
-        }
+        # the same step twice on the card: loss and gradients bit for bit;
+        # then a 3_refine step twice (MaskNet's convolutions, the mask loss)
+        refine = _one_step("3_refine", trained, batch, "cuda"), _one_step("3_refine", trained, batch, "cuda")
+        row["card_step_repeat"] = {"1_solver": compare_steps((card_loss, card_grads), (repeat_loss, repeat_grads)),
+                                   "3_refine": compare_steps(refine[0][:2], refine[1][:2])}
+        for stage, result in row["card_step_repeat"].items():
+            check(result["loss_bit_equal"] and result["gradients_bit_equal"],
+                  f"train: a {stage} card step does not repeat: {result}")
+        check(refine[0][2] == {(False, False, True)}, f"train: the 3_refine backward ran with flags {sorted(refine[0][2])}")
+        # the backward node types of one card step, walked from its loss: the
+        # fixed-order gathers and upsampling must stand in the graph
+        model = _stage_model("1_solver", trained, "cuda")
+        train._stage_optimizer(train.STAGES["1_solver"], model, 1e-4, use_adam=False)
+        with train.fp32_step():
+            loss, _ = train._forward_and_loss(model, train.batch_to_device(dict(batch), "cuda"), train.STAGES["1_solver"])
+        row["backward_census"] = train.backward_census(loss)
+        check(all(row["backward_census"].get(n, 0) > 0 for n in ("_GatherRowsBackward", "_BilinearResizeBackward")),
+              f"train: the card step's graph lacks a fixed-order backward: {row['backward_census']}")
+        del model, loss
         # the control, never a gate: the same step with TF32 left on
         row["card_tf32_vs_cpu"] = {"loss_rel": abs(tf32_loss - cpu_loss) / abs(cpu_loss),
                                    **_grad_diff(tf32_grads, cpu_grads)}

@@ -14,8 +14,11 @@ checkpoint.
 One training step (forward with the GN solve, the loss, backward, the
 optimizer) runs on the device with TF32 off for matrix products and cuDNN
 convolutions over the whole step, backward included, so the card rounds as
-the CPU does. Data loading stays host-side numpy; the shuffles, validation
-picks and match-subsampling uniforms come from one
+the CPU does, and with cuDNN's deterministic algorithms; the node gathers'
+and the flow upsampling's backwards sum in a fixed order
+(``ops/warp.py::gather_rows``, ``models/pwcnet.py::bilinear_resize``), so a
+step repeats bit for bit on the card. Data loading stays host-side numpy;
+the shuffles, validation picks and match-subsampling uniforms come from one
 ``np.random.default_rng(seed)`` in the JAX package's order, so both packages
 see the same batches.
 
@@ -90,14 +93,20 @@ GN_MAX_MEAN_TRANSLATION_ERROR = 0.5
 def fp32_step():
     """TF32 off for cuBLAS matrix products and cuDNN convolutions while the
     block runs (a whole step: the backward runs after the forward's own
-    ``fp32_convolutions`` block has closed), the previous flags restored."""
-    previous = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    ``fp32_convolutions`` block has closed), and cuDNN restricted to
+    deterministic algorithms: left free, cuDNN may pick backward-data and
+    backward-filter algorithms that add with float atomics, so a step's
+    gradients would differ from run to run on the card. The previous flags
+    are restored."""
+    cudnn = torch.backends.cudnn
+    previous = torch.backends.cuda.matmul.allow_tf32, cudnn.allow_tf32, cudnn.deterministic
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    cudnn.allow_tf32 = False
+    cudnn.deterministic = True
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = previous
+        torch.backends.cuda.matmul.allow_tf32, cudnn.allow_tf32, cudnn.deterministic = previous
 
 
 def node_translations_gt_from_scene_flow(batch) -> tuple[np.ndarray, np.ndarray]:
@@ -184,6 +193,21 @@ def make_train_step(model: DeformNet, optimizer, stage: StageConfig, scheduler=N
         return loss.detach(), {k: v.detach() for k, v in parts.items()}
 
     return train_step
+
+
+def backward_census(loss: torch.Tensor) -> dict[str, int]:
+    """The autograd graph behind ``loss``: each backward node type's name
+    (``grad_fn.name()``) and how many nodes of it the graph holds."""
+    counts: dict[str, int] = {}
+    seen, stack = set(), [loss.grad_fn]
+    while stack:
+        node = stack.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        counts[node.name()] = counts.get(node.name(), 0) + 1
+        stack.extend(child for child, _ in node.next_functions)
+    return dict(sorted(counts.items()))
 
 
 def make_eval_step(model: DeformNet, stage: StageConfig):

@@ -15,12 +15,15 @@ do. Submodule names are the reference checkpoint's (``moduleExtractor``,
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from dynamicfuion_python_tpu_torch.ops.correlation import correlation
 from dynamicfuion_python_tpu_torch.ops.image_warp import backward_warp
+from dynamicfuion_python_tpu_torch.ops.segment_sum import fp32_matmuls
 
 _WORDS = ("One", "Two", "Thr", "Fou", "Fiv", "Six")
 EXTRACTOR_WIDTHS = (16, 32, 64, 96, 128, 196)
@@ -190,9 +193,69 @@ class PWCNet(nn.Module):
         return tuple(to_nhwc(x) for x in self.forward_nchw(to_nchw(first), to_nchw(second)))
 
 
+@functools.lru_cache(maxsize=32)
+def bilinear_weights(size_in: int, size_out: int, device: torch.device) -> torch.Tensor:
+    """f32[size_out, size_in]: row ``o`` holds the weights with which
+    ``F.interpolate(mode="bilinear", align_corners=False)`` blends the input
+    along one axis into output ``o`` (half-pixel centres, source index
+    clamped at 0, the last input repeated at the far edge), computed on
+    ``device`` as PyTorch's kernels compute them, once per sizes and
+    device."""
+    f32 = dict(dtype=torch.float32, device=device)
+    scale = torch.full((), size_in, **f32) / torch.full((), size_out, **f32)
+    src = torch.clamp(scale * (torch.arange(size_out, **f32) + 0.5) - 0.5, min=0.0)
+    lo = src.to(torch.int64)
+    frac = src - lo
+    hi = lo + (lo < size_in - 1)
+    cols = torch.arange(size_in, device=device)
+    return (torch.where(cols == lo[:, None], 1.0 - frac[:, None], 0.0)
+            + torch.where(cols == hi[:, None], frac[:, None], 0.0))
+
+
+def bilinear_resize_backward(grad: torch.Tensor, size_in: tuple[int, int]) -> torch.Tensor:
+    """The gradient of a bilinear resize [B, C, h, w] -> [B, C, H, W] with
+    respect to its input: the transposed resize ``Ry^T G Rx`` (``Ry``
+    [H, h], ``Rx`` [W, w], :func:`bilinear_weights`), two FP32 matrix
+    products (TF32 off) whose order of additions the shapes fix. The JAX
+    package's ``jax.image.resize`` is the same contraction."""
+    ry = bilinear_weights(size_in[0], grad.shape[-2], grad.device)
+    rx = bilinear_weights(size_in[1], grad.shape[-1], grad.device)
+    with fp32_matmuls():
+        return torch.matmul(torch.matmul(ry.t(), grad), rx)
+
+
+class _BilinearResize(torch.autograd.Function):
+    """``F.interpolate(mode="bilinear", align_corners=False)`` forward. The
+    backward is autograd's own on the CPU; on the card, whose own backward
+    adds with float atomics, it is :func:`bilinear_resize_backward`."""
+
+    @staticmethod
+    def forward(x, size):
+        return F.interpolate(x, size=size, mode="bilinear", align_corners=False)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.size_in = tuple(inputs[0].shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if grad.device.type == "cpu":
+            size_out = list(grad.shape[-2:])
+            return torch.ops.aten.upsample_bilinear2d_backward(grad, size_out, list(ctx.size_in), False), None
+        if grad.device.type != "cuda":
+            raise RuntimeError(f"bilinear resize: no backward for device {grad.device}")
+        return bilinear_resize_backward(grad, ctx.size_in[-2:]), None
+
+
+def bilinear_resize(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """NCHW ``x`` resized to ``size`` bilinearly (half-pixel centres),
+    bit-equal to ``F.interpolate``; its backward has a fixed order on the
+    card."""
+    return _BilinearResize.apply(x, tuple(size))
+
+
 def upsample_flow_to_full(flow2: torch.Tensor, image_size: tuple[int, int]) -> torch.Tensor:
     """flow2 (1/4 resolution, NHWC) -> dense full-resolution flow in pixels:
     bilinear upsampling with half-pixel centers, times 20 (the reference's
     flow-net output convention)."""
-    up = F.interpolate(to_nchw(flow2), size=tuple(image_size), mode="bilinear", align_corners=False)
-    return to_nhwc(up) * 20.0
+    return to_nhwc(bilinear_resize(to_nchw(flow2), image_size)) * 20.0

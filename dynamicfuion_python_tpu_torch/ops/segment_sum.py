@@ -59,7 +59,7 @@ def _index_add_sum(values, seg, num_segments: int, acc=None) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def _fp32_matmuls():
+def fp32_matmuls():
     """cuBLAS without TF32 inside the block, the caller's flag after it."""
     previous = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -81,7 +81,7 @@ def segment_sum_onehot(values, seg, num_segments: int, acc=None) -> torch.Tensor
     col = torch.where(keep, seg, 0).long()  # a dropped row's zeros land anywhere
     out = flat.new_zeros((num_segments, c)) if acc is None else acc.reshape(num_segments, c)
     group = max(1, _ONEHOT_ELEMENTS // (_ONEHOT_ROWS * max(num_segments, 1))) * _ONEHOT_ROWS
-    with _fp32_matmuls():
+    with fp32_matmuls():
         for start in range(0, r, group):
             rows = torch.where(keep[start : start + group, None], flat[start : start + group], 0.0)
             cols = col[start : start + group]

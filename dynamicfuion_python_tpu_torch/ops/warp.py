@@ -11,14 +11,38 @@ from __future__ import annotations
 
 import torch
 
+from dynamicfuion_python_tpu_torch.ops.segment_sum import segment_sum
+
+
+class _GatherRows(torch.autograd.Function):
+    """``index_select`` rows of a table; the backward sums the gradient's
+    rows into the table's rows with :func:`segment_sum`: ``index_add_`` in
+    index order on the CPU (the bits of autograd's own ``index_select``
+    backward), a fixed order on the card, where autograd's ``index_add_``
+    adds with float atomics."""
+
+    @staticmethod
+    def forward(table, index):
+        return torch.index_select(table, 0, index)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[1])
+        ctx.rows = inputs[0].shape[0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (index,) = ctx.saved_tensors
+        return segment_sum(grad, index, ctx.rows), None
+
 
 def gather_rows(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     """``table[index]`` for an integer ``index`` of any shape, as
-    ``index_select``: its backward is an ``index_add_`` (atomics on the
-    card), where advanced indexing's sorts every index and sums each row's
-    duplicates serially, seconds per step when a few hundred nodes are
-    gathered for a million anchors."""
-    return torch.index_select(table, 0, index.reshape(-1)).reshape(*index.shape, *table.shape[1:])
+    ``index_select`` (advanced indexing's backward sorts every index and
+    sums each row's duplicates serially, seconds per step when a few
+    hundred nodes are gathered for a million anchors), whose backward is a
+    :func:`segment_sum` of the gradient's rows."""
+    return _GatherRows.apply(table, index.reshape(-1)).reshape(*index.shape, *table.shape[1:])
 
 
 def blend_warp(

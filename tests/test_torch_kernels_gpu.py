@@ -1,5 +1,7 @@
-"""The hand-written CUDA kernels against their plain PyTorch versions, and
-the segment sums' card forms against the CPU's ``index_add_``, on the card.
+"""The hand-written CUDA kernels against their plain PyTorch versions, the
+segment sums' card forms against the CPU's ``index_add_``, and the training
+step's backwards (gathers, flow upsampling, bilinear sampling, convolutions
+under ``fp32_step``) repeating bit for bit, on the card.
 Every test here needs a CUDA device and skips without one; the file
 imports nothing of JAX, so it runs on a machine that has only PyTorch:
 
@@ -294,3 +296,124 @@ def test_phase_upsampling_repeats_bit_for_bit(card):
                 assert torch.equal(module(xc), first), (cin, cout, h, w)
         err = float((first.double().cpu() - want).abs().max())
         assert err <= 1e-5 * float(want.abs().max()), (cin, cout, h, w, err)
+
+
+# the training step's backwards at the shapes of the JAX train()'s defaults
+# (448x640, batch 4, 128 node slots, 10,000 matches): each must repeat bit
+# for bit over 20 calls on the card (no float atomics) and agree with the
+# CPU in f64. Gathers: (rows, row shape) into 128 nodes
+GATHER_SITES = {
+    "warp_loss_anchors": (286_720 * 4, (3, 3)),  # blend_warp of every pixel
+    "gn_match_anchors": (10_000 * 4, (3, 3)),  # the GN's rotations per match
+    "gn_arap_edges": (128 * 8, (3,)),  # the ARAP residual's translations
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("site", sorted(GATHER_SITES))
+def test_gather_rows_backward_repeats_bit_for_bit(card, site):
+    """``gather_rows``' backward (a ``segment_sum`` of the gradient's rows)
+    20 times bit-equal, within 1e-6 of the largest entry of the CPU's sum
+    in f64."""
+    from dynamicfuion_python_tpu_torch.ops.warp import gather_rows
+
+    rows, shape = GATHER_SITES[site]
+    gen = torch.Generator().manual_seed(14)
+    table = torch.randn((128, *shape), generator=gen)
+    index = torch.randint(0, 128, (rows,), generator=gen)
+    grad = torch.randn((rows, *shape), generator=gen)
+    want = torch.zeros((128, *shape), dtype=torch.float64).index_add_(0, index, grad.double())
+    t, i, g = table.to(card).requires_grad_(), index.to(card), grad.to(card)
+    first = torch.autograd.grad(gather_rows(t, i), t, g)[0]
+    for _ in range(19):
+        assert torch.equal(torch.autograd.grad(gather_rows(t, i), t, g)[0], first)
+    assert float((first.double().cpu() - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes", [((112, 160), (448, 640)), ((7, 13), (30, 41))], ids=["flow2", "odd"])
+def test_bilinear_resize_backward_repeats_bit_for_bit(card, sizes):
+    """PWC-Net's flow upsampling: the forward equals ``F.interpolate`` on
+    the card bit for bit; the backward (the transposed resize) 20 times
+    bit-equal, within 1e-6 of the largest entry of autograd's own backward
+    on the card and on the CPU."""
+    import torch.nn.functional as F
+
+    from dynamicfuion_python_tpu_torch.models.pwcnet import bilinear_resize
+
+    size_in, size_out = sizes
+    gen = torch.Generator().manual_seed(15)
+    x = torch.randn((4, 2, *size_in), generator=gen)
+    grad = torch.randn((4, 2, *size_out), generator=gen)
+    xc, gc = x.to(card).requires_grad_(), grad.to(card)
+    up = bilinear_resize(xc, size_out)
+    assert torch.equal(up, F.interpolate(xc, size=size_out, mode="bilinear", align_corners=False))
+    first = torch.autograd.grad(up, xc, gc)[0]
+    for _ in range(19):
+        assert torch.equal(torch.autograd.grad(bilinear_resize(xc, size_out), xc, gc)[0], first)
+    for device in (card, torch.device("cpu")):
+        xd = x.to(device).requires_grad_()
+        up = F.interpolate(xd, size=size_out, mode="bilinear", align_corners=False)
+        want = torch.autograd.grad(up, xd, grad.to(device))[0].cpu()
+        assert float((first.cpu() - want).abs().max()) <= 1e-6 * float(want.abs().max()), device
+
+
+@pytest.mark.gpu
+def test_bilinear_sample_backward_repeats_bit_for_bit(card):
+    """PWC-Net's backward warp of the second image's level-2 features
+    (112x160, 32 channels) by a flow: advanced indexing's backward (a
+    sort-based ``index_put_``) 20 times bit-equal for the image and the
+    flow, within 1e-6 of the largest entry of the CPU's (in f32: the same
+    tap weights, the sums in another order; f64 weights differ by ~7e-6)."""
+    from dynamicfuion_python_tpu_torch.ops.image_warp import backward_warp
+
+    gen = torch.Generator().manual_seed(16)
+    image = torch.randn((112, 160, 32), generator=gen)
+    flow = torch.randn((112, 160, 2), generator=gen) * 4.0
+    grad = torch.randn((112, 160, 32), generator=gen)
+
+    def grads(device, dtype):
+        im = image.to(device, dtype).requires_grad_()
+        fl = flow.to(device, dtype).requires_grad_()
+        return torch.autograd.grad(backward_warp(im, fl), (im, fl), grad.to(device, dtype))
+
+    first = grads(card, torch.float32)
+    for _ in range(19):
+        assert all(torch.equal(a, b) for a, b in zip(grads(card, torch.float32), first))
+    for got, want in zip(first, grads("cpu", torch.float32)):
+        assert float((got.cpu() - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layer", ["extractor_one", "refiner_one"])
+def test_conv_backward_repeats_under_fp32_step(card, layer):
+    """A PWC-Net convolution's backward (input and weight gradients) inside
+    ``fp32_step`` (TF32 off, cuDNN deterministic), at batch 4 of the
+    448x640 crop: the extractor's first stride-2 convolution on the images
+    and the refiner's first on 112x160 features: 20 times bit-equal, within
+    2e-4 of the largest entry of the CPU's in f64 (the bound of
+    chip_smoke.py's card-vs-CPU training gradients; the refiner's weight
+    gradient, FP32 sums of 71,680 products each by cuDNN's deterministic
+    algorithm, was 4.9e-5 off on an H100)."""
+    from dynamicfuion_python_tpu_torch.apps.train import fp32_step
+    from dynamicfuion_python_tpu_torch.models.pwcnet import PWCNet
+
+    net = PWCNet()
+    conv, size = {"extractor_one": (net.moduleExtractor.moduleOne[0], (448, 640)),
+                  "refiner_one": (net.moduleRefiner.moduleMain[0], (112, 160))}[layer]
+    gen = torch.Generator().manual_seed(17)
+    x = torch.randn((4, conv.in_channels, *size), generator=gen)
+    with torch.no_grad():
+        grad = torch.randn((4, *conv(x[:1]).shape[1:]), generator=gen)
+
+    def grads(device, dtype):
+        module = conv.to(device, dtype)
+        xd = x.to(device, dtype).requires_grad_()
+        with fp32_step():
+            return torch.autograd.grad(module(xd), (xd, module.weight, module.bias), grad.to(device, dtype))
+
+    first = grads(card, torch.float32)
+    for _ in range(19):
+        assert all(torch.equal(a, b) for a, b in zip(grads(card, torch.float32), first))
+    for got, want in zip(first, grads("cpu", torch.float64)):
+        assert float((got.double().cpu() - want).abs().max()) <= 2e-4 * float(want.abs().max())

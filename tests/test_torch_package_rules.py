@@ -344,3 +344,95 @@ def test_port_runs_without_the_packages_the_card_lacks(tmp_path):
                          env={**__import__("os").environ, "PYTHONPATH": str(ROOT)})
     assert out.returncode == 0, out.stderr[-3000:]
     assert "IMPORT_BLOCKER_OK" in out.stdout
+
+
+# backward nodes whose CUDA kernel adds into its gradient with float atomics
+# (or, for cumsum, a scan whose association depends on thread timing), as
+# PyTorch's determinism notes list them; the names are this PyTorch's
+# (test_denied_backward_names_are_this_pytorchs). repeat_interleave's
+# backward is IndexSelectBackward0 with tensor repeats, a view with an int
+ATOMIC_BACKWARDS = {
+    "IndexSelectBackward0": lambda x: torch.index_select(x, 0, torch.tensor([0, 0])),
+    "GatherBackward0": lambda x: torch.gather(x, 0, torch.zeros((2, 4), dtype=torch.long)),
+    "TakeBackward0": lambda x: torch.take(x, torch.tensor([0, 0])),
+    "EmbeddingBackward0": lambda x: torch.nn.functional.embedding(torch.tensor([0, 0]), x),
+    "EmbeddingBagBackward0": lambda x: torch.nn.functional.embedding_bag(
+        torch.tensor([0, 0]), x, torch.tensor([0]), mode="max"),
+    "CumsumBackward0": lambda x: torch.cumsum(x, 0),
+    "UpsampleLinear1DBackward0": lambda x: torch.nn.functional.interpolate(x[None], size=8, mode="linear"),
+    "UpsampleBilinear2DBackward0": lambda x: torch.nn.functional.interpolate(x[None, None], size=(8, 8), mode="bilinear"),
+    "UpsampleBilinear2DAaBackward0": lambda x: torch.nn.functional.interpolate(
+        x[None, None], size=(2, 2), mode="bilinear", antialias=True),
+    "UpsampleBicubic2DBackward0": lambda x: torch.nn.functional.interpolate(x[None, None], size=(8, 8), mode="bicubic"),
+    "UpsampleBicubic2DAaBackward0": lambda x: torch.nn.functional.interpolate(
+        x[None, None], size=(2, 2), mode="bicubic", antialias=True),
+    "UpsampleTrilinear3DBackward0": lambda x: torch.nn.functional.interpolate(
+        x[None, None, None], size=(2, 8, 8), mode="trilinear"),
+    "GridSampler2DBackward0": lambda x: torch.nn.functional.grid_sample(
+        x[None, None], torch.zeros((1, 2, 2, 2)), align_corners=False),
+    "GridSampler3DBackward0": lambda x: torch.nn.functional.grid_sample(
+        x[None, None, None], torch.zeros((1, 1, 2, 2, 3)), align_corners=False),
+    "AdaptiveAvgPool2DBackward0": lambda x: torch.nn.functional.adaptive_avg_pool2d(x[None], 3),
+    "AdaptiveAvgPool3DBackward0": lambda x: torch.nn.functional.adaptive_avg_pool3d(x[None, None], 3),
+    "AdaptiveMaxPool2DBackward0": lambda x: torch.nn.functional.adaptive_max_pool2d(x[None], 3),
+    "AvgPool3DBackward0": lambda x: torch.nn.functional.avg_pool3d(x[None, None, None], (1, 2, 2)),
+    "MaxPool3DWithIndicesBackward0": lambda x: torch.nn.functional.max_pool3d(x[None, None, None], (1, 2, 2)),
+    "FractionalMaxPool2DBackward0": lambda x: torch.nn.functional.fractional_max_pool2d(
+        x[None, None], 2, output_size=2, _random_samples=torch.full((1, 1, 2), 0.5)),
+    "ReflectionPad1DBackward0": lambda x: torch.nn.functional.pad(x[None], (1, 1), mode="reflect"),
+    "ReflectionPad2DBackward0": lambda x: torch.nn.functional.pad(x[None], (1, 1, 1, 1), mode="reflect"),
+    "ReplicationPad1DBackward0": lambda x: torch.nn.functional.pad(x[None], (1, 1), mode="replicate"),
+    "ReplicationPad2DBackward0": lambda x: torch.nn.functional.pad(x[None], (1, 1, 1, 1), mode="replicate"),
+    "NllLossBackward0": lambda x: torch.nn.functional.nll_loss(x, torch.tensor([0, 1, 2, 3])),
+}
+# the fixed-order backwards of the training path (ops/warp.py::gather_rows,
+# models/pwcnet.py::bilinear_resize, ops/segment_sum.py)
+FIXED_ORDER_BACKWARDS = ("_GatherRowsBackward", "_BilinearResizeBackward", "_SegmentSumBackward")
+
+
+@pytest.mark.parametrize("name", sorted(ATOMIC_BACKWARDS))
+def test_denied_backward_names_are_this_pytorchs(name):
+    x = torch.randn((4, 4), generator=torch.Generator().manual_seed(0), requires_grad=True)
+    assert ATOMIC_BACKWARDS[name](x).grad_fn.name() == name
+
+
+@pytest.fixture(scope="module")
+def training_split(tmp_path_factory):
+    """The 64x128 labeled split of tests/test_torch_training.py (four pairs,
+    graphs at node coverage 0.08) and its first pair as a batch."""
+    from dynamicfuion_python_tpu_torch.apps import create_graph_data, train
+    from dynamicfuion_python_tpu_torch.data.deform_dataset import LabeledDeformDataset
+    from dynamicfuion_python_tpu_torch.data.synthetic_pairs import write_split
+
+    root = tmp_path_factory.mktemp("split")
+    for seq in write_split(root / "train", (64, 128)):
+        create_graph_data.main([str(seq), "--node-coverage", "0.08", "--frames", "0", "--labels", str(root / "train.json")])
+    batch = LabeledDeformDataset(root, "train", input_size=(64, 128), max_nodes=32).batch([0])
+    batch["node_translations_gt"] = train.node_translations_gt_from_scene_flow(batch)[0]
+    batch["match_subsample_uniforms"] = np.random.default_rng(2).uniform(size=batch["target"].shape[:3]).astype(np.float32)
+    return batch
+
+
+@pytest.mark.parametrize("stage", ["1_solver", "3_refine"])
+def test_training_backward_has_a_fixed_order(training_split, stage):
+    """One training step's loss on the CPU at 64x128, batch 1, 32 nodes:
+    no backward node of its graph adds with float atomics on the card, and
+    the fixed-order gathers and upsampling stand in their place."""
+    from dynamicfuion_python_tpu_torch.apps import train
+    from dynamicfuion_python_tpu_torch.models.deform_net import seeded_state_dict
+
+    previous = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        model = train.build_model(train.STAGES[stage], 32, 1000)
+        model.load_state_dict(seeded_state_dict(model, torch.Generator().manual_seed(0)))
+        train._stage_optimizer(train.STAGES[stage], model, 1e-4, use_adam=False)  # freezes as the stage does
+        with train.fp32_step():
+            loss, _ = train._forward_and_loss(model, train.batch_to_device(training_split, "cpu"), train.STAGES[stage])
+        census = train.backward_census(loss)
+    finally:
+        torch.set_num_threads(previous)
+    denied = {name: count for name, count in census.items() if name in ATOMIC_BACKWARDS}
+    assert not denied, denied
+    assert all(census.get(name, 0) > 0 for name in FIXED_ORDER_BACKWARDS), census
+    assert census["ConvolutionBackward0"] > 50 and census["torch::autograd::AccumulateGrad"] > 100, census
