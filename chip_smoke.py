@@ -161,6 +161,21 @@ def check(cond, message: str) -> None:
         raise RuntimeError(f"chip_smoke: {message}")
 
 
+def reset_counters() -> None:
+    """Zero the port's counters (``utils/trace.py``), B1's and B2's
+    launches among them."""
+    from dynamicfuion_python_tpu_torch.utils import trace
+
+    trace.reset()
+
+
+def kernel_launches() -> dict:
+    """B1's and B2's launches since the counters were last zeroed."""
+    from dynamicfuion_python_tpu_torch.utils import trace
+
+    return {"rasterize_tiles": trace.counter("b1.launches"), "mesh_expand": trace.counter("b2.launches")}
+
+
 def pose_summary(extrinsics) -> dict:
     """A 4x4 camera pose's translation norm, rotation angle (rad) and the
     largest entry of R R^T - I."""
@@ -388,7 +403,7 @@ def phase_main_path():
             "data_term": LastCall(fitter._DATA_TERMS, "face", keep_first=True),
             "gn_step": LastCall(fitter, "gauss_newton_step", keep_first=True),
             "arrowhead": LastCall(fitter, "solve_block_sparse_arrowhead")}
-    native.reset_launch_counts()
+    reset_counters()
     pipe = FusionPipeline(params, seq.intrinsics)  # the default device: the card
     t0 = time.perf_counter()
     pipe.initialize(frames[0].depth, frames[0].color)
@@ -423,7 +438,7 @@ def phase_main_path():
         }
         emit(row)
         per_frame.append(row)
-    launches = dict(native.launch_counts)
+    launches = kernel_launches()
     for rec in last.values():
         rec.restore()
     for row in per_frame:
@@ -821,7 +836,7 @@ def phase_neural_prior() -> dict:
         params, seq = make_shifted_plane(frame_count=3)
         params = apply_overrides(params, overrides)
         frames = list(seq)
-        native.reset_launch_counts()
+        reset_counters()
         pipe = FusionPipeline(params, seq.intrinsics)
         prior = pipe._apply_prior = Timed(pipe._apply_prior)
         pipe.initialize(frames[0].depth, frames[0].color)
@@ -832,7 +847,7 @@ def phase_neural_prior() -> dict:
             m = pipe.process_frame(f.depth, f.color, prior_flow=flow)
             torch.cuda.synchronize()
             rows.append(_frame_row(pipe, m, time.perf_counter() - t0, {"prior_s": prior.seconds[-1]}))
-        launches[name] = dict(native.launch_counts)
+        launches[name] = kernel_launches()
         emit({"phase": "neural_prior", "run": name, "frames": rows, "launches": launches[name]})
         for row in rows:
             shift = seq.shift * row["frame"]
@@ -885,7 +900,7 @@ def phase_deform_net() -> dict:
         gn = LastCall(dn, "optimize_point_cloud_alignment")
         hook = torch.nn.modules.module.register_module_forward_hook(record, with_kwargs=True)
         try:
-            native.reset_launch_counts()
+            reset_counters()
             pipe = fusion_pipeline.FusionPipeline(params, seq.intrinsics)
             prior = pipe._apply_prior = Timed(pipe._apply_prior)
             pipe.initialize(frames[0].depth, frames[0].color)
@@ -895,7 +910,7 @@ def phase_deform_net() -> dict:
                 m = pipe.process_frame(f.depth, f.color)
                 torch.cuda.synchronize()
                 rows.append(_frame_row(pipe, m, time.perf_counter() - t0, {"prior_s": prior.seconds[-1]}))
-            launches = dict(native.launch_counts)
+            launches = kernel_launches()
         finally:
             hook.remove()
             loads.restore()
@@ -1134,13 +1149,13 @@ def phase_renderer(pipe):
     tris = pipe.canonical_triangles
     renderer = MeshRenderer(size, pipe.intrinsics)
     b1 = LastCall(rz, "rasterize_tiles")
-    native.reset_launch_counts()
+    reset_counters()
     try:
         (color, depth), syncs = host_syncs(lambda: renderer.render_mesh(verts, tris))
         torch.cuda.synchronize()
     finally:
         b1.restore()
-    launches = dict(native.launch_counts)
+    launches = kernel_launches()
     for kernel in native.KERNELS:
         check(launches[kernel] > 0, f"renderer: kernel {kernel} was not launched")
     with plain_kernels():
@@ -1219,7 +1234,7 @@ def phase_rendered_prior() -> dict:
                 "telemetry.record_rendered_warped_mesh=true", f"telemetry.output_directory={tmp}",
                 "telemetry.print_runtime=false"])
             frames = list(seq)
-            native.reset_launch_counts()
+            reset_counters()
             pipe = FusionPipeline(params, seq.intrinsics)
             pipe.telemetry = TelemetryRecorder(params.telemetry, name)
             in_prior = Active(pipe._apply_prior)
@@ -1241,7 +1256,7 @@ def phase_rendered_prior() -> dict:
                 m = pipe.process_frame(f.depth, f.color, prior_flow=flow)
                 torch.cuda.synchronize()
                 rows.append(_frame_row(pipe, m, time.perf_counter() - t0, {"prior_s": prior.seconds[-1]}))
-            launches[name] = dict(native.launch_counts)
+            launches[name] = kernel_launches()
             gaps = []
             for depth_r, kf in sources:
                 kf_m = kf.to(torch.float32) / params.fusion.depth_scale
@@ -1310,10 +1325,10 @@ def phase_volume_readout(pipe):
     # point at the padding vertex, which the near plane clips)
     verts, faces, v_count, t_count = extract_mesh_fitter_arrays(volume, 1 << 20, 1 << 19, 0.0)
     renderer = MeshRenderer((h, w), k)
-    native.reset_launch_counts()
+    reset_counters()
     _, depth_r = renderer.render_mesh(verts, faces)
     torch.cuda.synchronize()
-    launches = dict(native.launch_counts)
+    launches = kernel_launches()
     for kernel in native.KERNELS:
         check(launches[kernel] > 0, f"volume read-out: kernel {kernel} was not launched")
     both = rays["mask"] & (depth_r > 0)
@@ -1362,7 +1377,6 @@ def phase_indexed():
     from dynamicfuion_python_tpu_torch.apps.profile_frame import (
         HEADLINE_FOCAL, HEADLINE_IMAGE_SIZE, build_scene, headline_tier_caps)
     from dynamicfuion_python_tpu_torch.ops import mesh_expand as me
-    from dynamicfuion_python_tpu_torch.ops import native
     from dynamicfuion_python_tpu_torch.ops import rasterize as rz
     from dynamicfuion_python_tpu_torch.utils.device import resolve_device
 
@@ -1375,10 +1389,10 @@ def phase_indexed():
     f = faces.shape[0]
     caps = headline_tier_caps(f)
     plan = me.ExpansionPlan(faces, verts.shape[0])
-    native.reset_launch_counts()
+    reset_counters()
     frag_i, over_i = me.rasterize_indexed(verts, plan, k, (h, w), **caps)
     torch.cuda.synchronize()
-    launches = dict(native.launch_counts)
+    launches = kernel_launches()
     check(launches["mesh_expand"] > 0, "indexed: kernel mesh_expand was not launched")
     fv, valid = rz.extract_face_vertices(verts, faces, k, (h, w))
     frag_s, over_s = rz.rasterize_splat(fv, valid, (h, w), return_overflow=True, **caps)
@@ -1535,7 +1549,6 @@ def phase_train(smi: str) -> dict:
     from dynamicfuion_python_tpu_torch.apps.profile_train_step import compare_steps
     from dynamicfuion_python_tpu_torch.data.deform_dataset import LabeledDeformDataset
     from dynamicfuion_python_tpu_torch.data.synthetic_pairs import write_split
-    from dynamicfuion_python_tpu_torch.ops import native
     from dynamicfuion_python_tpu_torch.settings import TrainingConfig
 
     row = {"phase": "train", "nvidia_smi": smi, "image_size": list(TRAIN_CROP), "batch": 4, "max_nodes": 128,
@@ -1548,7 +1561,7 @@ def phase_train(smi: str) -> dict:
             create_graph_data.main([str(seq), "--frames", "0", "--labels", str(root / "train.json")])
         row["dataset_s"] = time.perf_counter() - t0
 
-        native.reset_launch_counts()
+        reset_counters()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         stats: dict = {}
@@ -1611,7 +1624,7 @@ def phase_train(smi: str) -> dict:
                 check(key == "graph_error_3d" and not any_valid_node, f"train: evaluate {key} is None")
             else:
                 check(math.isfinite(value), f"train: evaluate {key} = {value}")
-        launches = dict(native.launch_counts)
+        launches = kernel_launches()
 
         # one step on the card against the CPU, TF32 on globally beforehand
         dataset = LabeledDeformDataset(root, "train", input_size=PARITY_CROP, max_nodes=128)
@@ -1771,7 +1784,6 @@ def phase_sod() -> dict:
         u2net_flax_from_state_dict,
     )
     from dynamicfuion_python_tpu_torch.models.u2net import U2Net, U2NetFull
-    from dynamicfuion_python_tpu_torch.ops import native
     from dynamicfuion_python_tpu_torch.utils.telemetry import read_png
 
     flags, marks, starts = [], [], []
@@ -1802,14 +1814,14 @@ def phase_sod() -> dict:
         with tempfile.TemporaryDirectory() as tmp:
             tmp = Path(tmp)
             _sod_frames(tmp / "color", SOD_FRAMES, SOD_FRAME_SIZE)
-            native.reset_launch_counts()
+            reset_counters()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             written = sod.generate_masks(tmp / "color", tmp / "sod", full_model=True)
             torch.cuda.synchronize()
             starts.append(time.perf_counter())
             wall = starts[-1] - t0
-            launches = dict(native.launch_counts)
+            launches = kernel_launches()
             peak = torch.cuda.max_memory_allocated() / 2**20
             masks = [read_png(p) for p in written]
             sod.load_color = load_color
@@ -1862,7 +1874,7 @@ def phase_leaf_ops(odometry_call, arrowhead_call, params) -> dict:
     import numpy as np
     import torch
 
-    from dynamicfuion_python_tpu_torch.ops import native, sampling
+    from dynamicfuion_python_tpu_torch.ops import sampling
     from dynamicfuion_python_tpu_torch.ops.camera import unproject_depth_image
     from dynamicfuion_python_tpu_torch.ops.distances import point_to_plane_distances
     from dynamicfuion_python_tpu_torch.ops.linalg import (
@@ -1872,7 +1884,7 @@ def phase_leaf_ops(odometry_call, arrowhead_call, params) -> dict:
     )
     from dynamicfuion_python_tpu_torch.ops.normals import point_image_normals
 
-    native.reset_launch_counts()
+    reset_counters()
     prev, cur, intr = odometry_call.args
     f = params.fusion
     points, mask = unproject_depth_image(cur, intr, f.depth_scale, f.far_clip_distance)
@@ -1946,7 +1958,7 @@ def phase_leaf_ops(odometry_call, arrowhead_call, params) -> dict:
         "ms": cuda_time_ms(lambda: point_to_plane_distances(points, prev_points, normals), 20),
     }
     check(row["point_to_plane"]["max_abs_err"] <= 1e-6, f"leaf ops: distances differ ({row['point_to_plane']})")
-    launches = dict(native.launch_counts)
+    launches = kernel_launches()
     row["launches"] = launches
     emit(row)
     return launches
@@ -1974,7 +1986,6 @@ def _spmd_rank(rank: int, world: int, tmp: str) -> None:
     from dynamicfuion_python_tpu_torch.apps.fusion_pipeline import FusionPipeline
     from dynamicfuion_python_tpu_torch.apps.profile_frame import make_slice, use_fp32_matmuls
     from dynamicfuion_python_tpu_torch.models import fitter
-    from dynamicfuion_python_tpu_torch.ops import native
     from dynamicfuion_python_tpu_torch.parallel import distributed, spmd
 
     tmp = Path(tmp)
@@ -1999,9 +2010,9 @@ def _spmd_rank(rank: int, world: int, tmp: str) -> None:
     pipe = FusionPipeline(params, seq.intrinsics)  # this rank's card
     pipe.initialize(frames[0].depth, frames[0].color)
     pipe.enable_spmd(group)
-    native.reset_launch_counts()
+    reset_counters()
     out["frames"] = _spmd_frames(pipe, frames[1:])
-    out["launches"] = dict(native.launch_counts)
+    out["launches"] = kernel_launches()
     out["translations"] = pipe.warp_field.node_translations.cpu()
     torch.save(out, tmp / f"rank{rank}.pt")
 

@@ -87,6 +87,7 @@ from dynamicfuion_python_tpu_torch.settings import (
     SourceImageMode,
     TrackingSpanMode,
 )
+from dynamicfuion_python_tpu_torch.utils import trace
 from dynamicfuion_python_tpu_torch.utils.device import resolve_device
 from dynamicfuion_python_tpu_torch.utils.telemetry import TelemetryRecorder
 from dynamicfuion_python_tpu_torch.utils.tensor_io import (
@@ -177,11 +178,11 @@ class FusionPipeline:
             coarse_factor=a.coarse_factor,
         )
 
-    def _frame(self, image: np.ndarray) -> torch.Tensor:
+    def _frame(self, image: np.ndarray, site: str) -> torch.Tensor:
         image = np.asarray(image)
         if image.dtype == np.uint16:  # few torch ops take uint16
             image = image.astype(np.int32)
-        return torch.as_tensor(image, device=self.device)
+        return trace.upload(image, self.device, site)
 
     # -- first frame ---------------------------------------------------------
 
@@ -193,7 +194,7 @@ class FusionPipeline:
         p = self.params
         g = p.graph
         mode = p.fusion.graph_generation_mode
-        frame_depth = depth_t = self._frame(depth)
+        frame_depth = depth_t = self._frame(depth, "frame.depth")
         if (
             mode == GraphGenerationMode.FIRST_FRAME_LOADED_GRAPH
             and frame_graph is not None
@@ -209,7 +210,7 @@ class FusionPipeline:
             )
         keys = self.volume.compute_unique_block_coordinates(depth_t, self.intrinsics, stride=2)
         self.volume = self.volume.activate(keys)
-        color_t = self._frame(color).to(torch.float32) / 255.0 if color is not None else None
+        color_t = self._frame(color, "frame.color").to(torch.float32) / 255.0 if color is not None else None
         self.volume = self.volume.integrate(depth_t, self.intrinsics, color=color_t)
         self._refresh_canonical_mesh(sync=True)
 
@@ -268,34 +269,37 @@ class FusionPipeline:
         """Extract the welded canonical mesh at the configured maximum
         capacity, then slice it to the fitter's sticky buckets. Bucket growth
         follows the previous frame's counts unless ``sync``."""
-        t_max = _capacity_bucket(self.params.fusion.extraction_max_triangles)
-        v_max = _capacity_bucket(t_max * 3 // 2 + 2)
-        verts, faces, v_count, t_count = extract_mesh_fitter_arrays(
-            self.volume, v_max, t_max, self._extraction_weight_threshold()
-        )
-        if self.spmd_group is not None:
-            # the canonical mesh is replicated: rank 0's
-            verts, faces, v_count, t_count = spmd.replicate([verts, faces, v_count, t_count], self.spmd_group)
-        counts = (int(v_count), int(t_count))
-        if sync:
-            self._count_host = counts
-            self._pending_counts = None
-        else:
-            if self._pending_counts is not None:
-                self._count_host = self._pending_counts
-            self._pending_counts = counts
-        vc, tc = self._count_host
-        while tc >= self._mesh_t_cap and self._mesh_t_cap < t_max:
-            self._mesh_t_cap *= 2
-        while vc + 1 >= self._mesh_v_cap and self._mesh_v_cap < v_max:
-            self._mesh_v_cap *= 2
-        self._mesh_t_cap = min(self._mesh_t_cap, t_max)
-        self._mesh_v_cap = min(self._mesh_v_cap, v_max)
-        self.canonical_vertices, self.canonical_triangles = _slice_mesh_arrays(
-            verts, faces, self._mesh_v_cap, self._mesh_t_cap
-        )
-        self.canonical_triangle_count = min(tc, self._mesh_t_cap)
-        self._canonical_soup_np = None
+        with trace.span("mesh"):
+            t_max = _capacity_bucket(self.params.fusion.extraction_max_triangles)
+            v_max = _capacity_bucket(t_max * 3 // 2 + 2)
+            verts, faces, v_count, t_count = extract_mesh_fitter_arrays(
+                self.volume, v_max, t_max, self._extraction_weight_threshold()
+            )
+            if self.spmd_group is not None:
+                # the canonical mesh is replicated: rank 0's
+                verts, faces, v_count, t_count = spmd.replicate([verts, faces, v_count, t_count], self.spmd_group)
+            counts = (int(trace.host_read(v_count, "mesh.counts")), int(trace.host_read(t_count, "mesh.counts")))
+            if sync:
+                self._count_host = counts
+                self._pending_counts = None
+            else:
+                if self._pending_counts is not None:
+                    self._count_host = self._pending_counts
+                self._pending_counts = counts
+            vc, tc = self._count_host
+            while tc >= self._mesh_t_cap and self._mesh_t_cap < t_max:
+                self._mesh_t_cap *= 2
+                trace.count("mesh.bucket_grows")
+            while vc + 1 >= self._mesh_v_cap and self._mesh_v_cap < v_max:
+                self._mesh_v_cap *= 2
+                trace.count("mesh.bucket_grows")
+            self._mesh_t_cap = min(self._mesh_t_cap, t_max)
+            self._mesh_v_cap = min(self._mesh_v_cap, v_max)
+            self.canonical_vertices, self.canonical_triangles = _slice_mesh_arrays(
+                verts, faces, self._mesh_v_cap, self._mesh_t_cap
+            )
+            self.canonical_triangle_count = min(tc, self._mesh_t_cap)
+            self._canonical_soup_np = None
 
     @property
     def canonical_mesh_soup(self) -> np.ndarray:
@@ -371,7 +375,7 @@ class FusionPipeline:
             kf_valid = kf_depth > 0
             depth_mm = torch.where(kf_valid, kf_depth.to(torch.float32), depth_mm)
             if kf_color is not None:
-                kf_rgb = self._frame(kf_color).to(torch.uint8)
+                kf_rgb = self._frame(kf_color, "prior.image").to(torch.uint8)
                 color_u8 = torch.where(kf_valid[..., None], kf_rgb, color_u8)
         return rgbxyz_from_depth(depth_mm, color_u8, self.intrinsics, f.depth_scale, f.far_clip_distance)
 
@@ -436,7 +440,7 @@ class FusionPipeline:
         r_k, t_k = self.keyframe_rotations, self.keyframe_translations
         r_est = torch.einsum("nab,ncb->nac", self.warp_field.node_rotations, r_k)
         t_est = self.warp_field.node_translations - t_k
-        edges = torch.as_tensor(self._node_graph_edges(), device=self.device)
+        edges = trace.upload(self._node_graph_edges(), self.device, "prior.edges")
         result = self.prior.predict(
             source, target, nodes_kf, edges, torch.where(edges >= 0, 1.0, 0.0),
             torch.zeros((self.warp_field.num_nodes,), dtype=torch.int32, device=self.device),
@@ -453,7 +457,8 @@ class FusionPipeline:
                 node_rotations=torch.einsum("nab,nbc->nac", result.rotations, r_k),
                 node_translations=t_k + result.translations,
             )
-        return {"prior_valid": result.valid_solve, "prior_matches": int(torch.sum(result.correspondence_mask))}
+        matches = int(trace.host_read(torch.sum(result.correspondence_mask), "prior.matches"))
+        return {"prior_valid": result.valid_solve, "prior_matches": matches}
 
     def enable_spmd(self, group) -> None:
         """Run the frame loop over ``group`` (``parallel.spmd.fusion_group``;
@@ -512,33 +517,41 @@ class FusionPipeline:
     def process_frame(self, depth: np.ndarray, color: np.ndarray | None, prior_flow=None) -> dict:
         """Fuse one frame; ``prior_flow`` (f32[H, W, 2], keyframe -> this
         frame, in pixels) runs the neural prior with that flow."""
+        self.frames_processed += 1
+        trace.count("frames")
+        trace.item(self.frames_processed)
+        with trace.span("frame"), trace.device_allocations(self.device):
+            return self._fuse_frame(depth, color, prior_flow)
+
+    def _fuse_frame(self, depth, color, prior_flow) -> dict:
         p = self.params
         use_rigid = p.alignment.use_rigid_alignment
-        self.frames_processed += 1
-        depth_t = self._frame(depth)
+        depth_t = self._frame(depth, "frame.depth")
 
         # rigid stage: frame-to-frame point-to-plane ICP accumulates the
         # camera pose; observations move into the canonical camera before
         # the non-rigid fit
         rigid_rmse = torch.zeros((), dtype=torch.float32, device=self.device)
         if use_rigid and self.previous_depth is not None:
-            delta, rigid_rmse = rigid_odometry.rigid_odometry_multi_scale(
-                self.previous_depth,
-                depth_t,
-                self.intrinsics,
-                depth_scale=p.fusion.depth_scale,
-                depth_max=p.fusion.far_clip_distance,
-                group=self.spmd_group,
-            )
-            self.extrinsics = delta @ self.extrinsics
-            if self.spmd_group is not None:
-                (self.extrinsics,) = spmd.replicate([self.extrinsics], self.spmd_group)
+            with trace.span("odometry"):
+                delta, rigid_rmse = rigid_odometry.rigid_odometry_multi_scale(
+                    self.previous_depth,
+                    depth_t,
+                    self.intrinsics,
+                    depth_scale=p.fusion.depth_scale,
+                    depth_max=p.fusion.far_clip_distance,
+                    group=self.spmd_group,
+                )
+                self.extrinsics = delta @ self.extrinsics
+                if self.spmd_group is not None:
+                    (self.extrinsics,) = spmd.replicate([self.extrinsics], self.spmd_group)
         self.previous_depth = depth_t
         pose = self.extrinsics if use_rigid else None
 
-        points, mask = observed_points(
-            depth_t, self.intrinsics, pose, p.fusion.depth_scale, p.fusion.far_clip_distance
-        )
+        with trace.span("observe"):
+            points, mask = observed_points(
+                depth_t, self.intrinsics, pose, p.fusion.depth_scale, p.fusion.far_clip_distance
+            )
         # neural prior: predict the keyframe -> current node transforms and
         # start the fit from them
         prior_metrics = {}
@@ -549,32 +562,34 @@ class FusionPipeline:
                 self._reset_keyframe(depth_t, color)
                 prior_metrics = {"prior_valid": False, "prior_matches": 0}
             else:
-                prior_metrics = self._apply_prior(depth_t, color, prior_flow)
-                if self.spmd_group is not None:
-                    self.warp_field = spmd.replicate_field(self.warp_field, self.spmd_group)
+                with trace.span("prior"):
+                    prior_metrics = self._apply_prior(depth_t, color, prior_flow)
+                    if self.spmd_group is not None:
+                        self.warp_field = spmd.replicate_field(self.warp_field, self.spmd_group)
         if self.spmd_group is not None:  # the fit reads this rank's rows
             points = spmd.shard_pixel_rows(points, self.spmd_group)
             mask = spmd.shard_pixel_rows(mask, self.spmd_group)
-        self.warp_field, diagnostics = fit_to_image(
-            self.warp_field,
-            self.canonical_vertices,
-            self.canonical_triangles,
-            points,
-            mask,
-            self.intrinsics,
-            self.fitter_config,
-            device=self.device,
-            group=self.spmd_group,
-        )
+        with trace.span("fit"):
+            self.warp_field, diagnostics = fit_to_image(
+                self.warp_field,
+                self.canonical_vertices,
+                self.canonical_triangles,
+                points,
+                mask,
+                self.intrinsics,
+                self.fitter_config,
+                device=self.device,
+                group=self.spmd_group,
+            )
         max_active = min(p.tsdf.max_active_blocks, self.volume.capacity)
         # a frame whose final GN iteration failed its valid-solve guard is
         # not fused
-        if bool(diagnostics["valid_solve"][-1]):
+        if bool(trace.host_read(diagnostics["valid_solve"][-1], "frame.valid_solve")):
             self.volume, n_intersecting = volume_update(
                 self.volume,
                 self.warp_field,
                 depth_t,
-                self._frame(color) if color is not None else None,
+                self._frame(color, "frame.color") if color is not None else None,
                 self.intrinsics,
                 max_active,
                 p.fusion.depth_scale,
@@ -586,6 +601,7 @@ class FusionPipeline:
             n_intersecting = torch.zeros((), dtype=torch.int64, device=self.device)
         self._refresh_canonical_mesh()
         if self.keyframe_source is not None and self._keyframe_should_roll():
+            trace.count("keyframe.rolls")
             self._reset_keyframe(depth_t, color)
         if self.telemetry is not None:
             self.telemetry.record_gn_iterations(
@@ -636,16 +652,22 @@ def _parse_iteration_modes(spec: str) -> tuple:
 
 
 def resolve_frame_metrics(metrics: dict) -> dict:
-    """``process_frame`` metrics as plain Python scalars / lists."""
+    """``process_frame`` metrics as plain Python scalars / lists (one host
+    read per value still on the device)."""
+
+    def read(x):
+        return trace.host_read(x, "frame.metrics") if isinstance(x, torch.Tensor) else x
+
     out = dict(metrics)
-    out["data_loss"] = [float(x) for x in metrics["data_loss"]]
-    out["arap_loss"] = [float(x) for x in metrics["arap_loss"]]
-    out["active_blocks"] = int(metrics["active_blocks"])
-    out["rigid_rmse"] = float(metrics["rigid_rmse"])
-    out["valid_solve"] = [bool(x) for x in metrics["valid_solve"]]
-    out["pixel_cap_kept_fraction"] = float(metrics["pixel_cap_kept_fraction"])
-    out["dropped_large_faces"] = [int(x) for x in metrics["dropped_large_faces"]]
-    out["dropped_bin_entries"] = [int(x) for x in metrics["dropped_bin_entries"]]
+    with trace.span("metrics"):
+        out["data_loss"] = [float(read(x)) for x in metrics["data_loss"]]
+        out["arap_loss"] = [float(read(x)) for x in metrics["arap_loss"]]
+        out["active_blocks"] = int(read(metrics["active_blocks"]))
+        out["rigid_rmse"] = float(read(metrics["rigid_rmse"]))
+        out["valid_solve"] = [bool(read(x)) for x in metrics["valid_solve"]]
+        out["pixel_cap_kept_fraction"] = float(read(metrics["pixel_cap_kept_fraction"]))
+        out["dropped_large_faces"] = [int(read(x)) for x in metrics["dropped_large_faces"]]
+        out["dropped_bin_entries"] = [int(read(x)) for x in metrics["dropped_bin_entries"]]
     return out
 
 
@@ -707,50 +729,51 @@ def volume_update(
     intersecting blocks. With ``group`` each rank integrates its share of
     the active blocks (a contiguous slot range of the ascending list) and
     then ``broadcast``s them to the others."""
-    intersecting = volume.find_blocks_intersecting_truncation_region(
-        depth, field, intrinsics, post_warp_extrinsics=post_warp_extrinsics
-    )
-    volume = volume.activate_sleeve_blocks(intersecting)
-    intersecting = volume.find_blocks_intersecting_truncation_region(
-        depth, field, intrinsics, post_warp_extrinsics=post_warp_extrinsics
-    )
-    active_slots, n_active = compact_mask_indices(intersecting, max_active, fill_value=0)
-    active_valid = intersecting[active_slots] & (
-        torch.arange(max_active, device=volume.device) < n_active
-    )
-    raw_points, _ = unproject_depth_image(depth, intrinsics, depth_scale, far_clip)
-    own_slots, own_valid = active_slots, active_valid
-    if group is not None:
-        n = int(torch.clamp(n_active, max=max_active))  # the list's length (one host sync)
-        start, stop = spmd.shard_blocks(n, group)
-        own_slots, own_valid = active_slots[start:stop], active_valid[start:stop]
-    if own_slots.shape[0]:
-        volume = volume.integrate_non_rigid(
-            own_slots,
-            own_valid,
-            field,
-            depth,
-            intrinsics,
-            color=(color.to(torch.float32) / 255.0) if color is not None else None,
-            normals=point_image_normals(raw_points),
-            post_warp_extrinsics=post_warp_extrinsics,
+    with trace.span("volume"):
+        intersecting = volume.find_blocks_intersecting_truncation_region(
+            depth, field, intrinsics, post_warp_extrinsics=post_warp_extrinsics
         )
-    if group is not None and n:
-        # every rank's updated blocks to every rank, the list's rows split as
-        # the integration split them
-        slots = active_slots[:n]
-        r3 = volume.tsdf[0].numel()
-        packet = torch.cat(
-            [volume.tsdf[slots].reshape(n, -1), volume.weight[slots].reshape(n, -1),
-             volume.color[slots].reshape(n, -1)], dim=1,
+        volume = volume.activate_sleeve_blocks(intersecting)
+        intersecting = volume.find_blocks_intersecting_truncation_region(
+            depth, field, intrinsics, post_warp_extrinsics=post_warp_extrinsics
         )
-        packet = spmd.broadcast_slices(packet, group)
-        volume = volume.replace(
-            tsdf=volume.tsdf.index_copy(0, slots, packet[:, :r3].reshape(-1, *volume.tsdf.shape[1:])),
-            weight=volume.weight.index_copy(0, slots, packet[:, r3 : 2 * r3].reshape(-1, *volume.weight.shape[1:])),
-            color=volume.color.index_copy(0, slots, packet[:, 2 * r3 :].reshape(-1, *volume.color.shape[1:])),
+        active_slots, n_active = compact_mask_indices(intersecting, max_active, fill_value=0)
+        active_valid = intersecting[active_slots] & (
+            torch.arange(max_active, device=volume.device) < n_active
         )
-    return volume, torch.sum(intersecting)
+        raw_points, _ = unproject_depth_image(depth, intrinsics, depth_scale, far_clip)
+        own_slots, own_valid = active_slots, active_valid
+        if group is not None:
+            n = int(trace.host_read(torch.clamp(n_active, max=max_active), "volume.shard"))  # the list's length
+            start, stop = spmd.shard_blocks(n, group)
+            own_slots, own_valid = active_slots[start:stop], active_valid[start:stop]
+        if own_slots.shape[0]:
+            volume = volume.integrate_non_rigid(
+                own_slots,
+                own_valid,
+                field,
+                depth,
+                intrinsics,
+                color=(color.to(torch.float32) / 255.0) if color is not None else None,
+                normals=point_image_normals(raw_points),
+                post_warp_extrinsics=post_warp_extrinsics,
+            )
+        if group is not None and n:
+            # every rank's updated blocks to every rank, the list's rows split as
+            # the integration split them
+            slots = active_slots[:n]
+            r3 = volume.tsdf[0].numel()
+            packet = torch.cat(
+                [volume.tsdf[slots].reshape(n, -1), volume.weight[slots].reshape(n, -1),
+                 volume.color[slots].reshape(n, -1)], dim=1,
+            )
+            packet = spmd.broadcast_slices(packet, group)
+            volume = volume.replace(
+                tsdf=volume.tsdf.index_copy(0, slots, packet[:, :r3].reshape(-1, *volume.tsdf.shape[1:])),
+                weight=volume.weight.index_copy(0, slots, packet[:, r3 : 2 * r3].reshape(-1, *volume.weight.shape[1:])),
+                color=volume.color.index_copy(0, slots, packet[:, 2 * r3 :].reshape(-1, *volume.color.shape[1:])),
+            )
+        return volume, torch.sum(intersecting)
 
 
 def _slice_mesh_arrays(verts, faces, v_cap: int, t_cap: int):

@@ -1,5 +1,6 @@
 """Where a frame's time goes: the 480x640 bending-plane slice on the card,
-one frame traced with ``torch.profiler``.
+one frame traced with ``torch.profiler`` and the port's spans
+(``utils/trace.py``).
 
     python -m dynamicfuion_python_tpu_torch.apps.profile_frame [--frames N] [--out DIR]
 
@@ -7,14 +8,15 @@ Defines the slice (:func:`make_slice`), which chip_smoke.py's main path runs
 too, the neural prior's 448x640 shifted-plane scene
 (:func:`make_shifted_plane`) and the indexed rasterizer's headline scene
 (:func:`build_scene`). Warms up on the first frames, then runs the last frame twice from the
-same state: untraced on a copy of the pipeline (its wall time), and traced.
-Prints one JSON line: both wall times, the summed device time of the traced
-frame's kernels, the device's idle share of the untraced frame (and of the
-traced one, which the profiler's host overhead inflates), the hand-written
-kernels' device time per launch, the rigid odometry stage (its own traced
-call on the last frame's depth pair: device time of its kernels and CUDA-event
-time), the frame's float sums by call site (:func:`sum_sites`) and the
-operators with the most device time. ``--out`` also receives the Chrome
+same state: untraced on a copy of the pipeline (its wall time), and traced
+with the spans on. Prints one JSON line: both wall times, the summed device
+time of the traced frame's kernels, the device's idle share of the untraced
+frame (and of the traced one, which the profiler's host overhead inflates),
+the hand-written kernels' device time per launch, the rigid odometry stage
+(its own traced call on the last frame's depth pair: device time of its
+kernels and CUDA-event time), by span the device ms, launches, self host ms
+and the device's idle ms while the host was in it, the port's counters, and
+the operators with the most device time. ``--out`` also receives the Chrome
 trace.
 """
 
@@ -34,6 +36,7 @@ from dynamicfuion_python_tpu_torch.apps.fusion_pipeline import FusionPipeline
 from dynamicfuion_python_tpu_torch.data.frame_sequence import Frame, SyntheticBendingPlaneSequence
 from dynamicfuion_python_tpu_torch.ops.rigid_odometry import rigid_odometry_multi_scale
 from dynamicfuion_python_tpu_torch.settings import Parameters
+from dynamicfuion_python_tpu_torch.utils import trace
 from dynamicfuion_python_tpu_torch.utils.config import apply_overrides
 
 # default Parameters() (rigid odometry on) with capacity overrides only: the
@@ -175,92 +178,13 @@ def build_scene(grid: int = 8, rings: int = 149, segments: int = 236) -> tuple[n
     return np.concatenate(verts_all), np.concatenate(faces_all)
 
 
-def _is_range(name: str) -> bool:
-    """A profiler range of :class:`_Ranges` (its device-side span would count
-    its kernels twice)."""
-    return name.startswith("site::") or name == "segment_sum"
-
-
 def device_busy_ms(events) -> float:
     """Summed device time of the kernel rows of ``key_averages()`` (operator
-    rows and ranges would count their kernels twice)."""
+    rows and the spans' ranges would count their kernels twice)."""
     return sum(
         device_us(e) for e in events
-        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA and not _is_range(e.key)
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA and not e.key.startswith(trace.PREFIX)
     ) / 1e3
-
-
-# the frame's float sums, by the function that asks for them: each site's
-# function runs inside a profiler range while the frame is traced, and so
-# does each call of ops/segment_sum.py where the tree has it. A sum's
-# operators are those inside a ``segment_sum`` range, the accumulating
-# scatters (a tree before that module) and the jacobian slot adds
-# (``scatter_add_``, or a ``gather`` and a ``scatter_`` per pair)
-SUM_SITES = {
-    "data_term": ("models.fitter", "_assemble_normal_equations"),
-    "jacobian_slots": ("models.fitter", "_chain_rule"),
-    "arap": ("ops.arap", "assemble_arap_normal_equations"),
-    "arrowhead_solve": ("models.fitter", "solve_block_sparse_arrowhead"),
-    "arrowhead_wing_t": ("ops.linalg.arrowhead", "_wing_t_times"),
-    "normals": ("models.fitter", "mesh_vertex_normals"),
-}
-_SUM_CALLERS = ("models.fitter", "ops.arap", "ops.linalg.arrowhead", "ops.normals")
-_ATOMIC_SUMS = ("aten::index_add_", "aten::index_add", "aten::scatter_add_", "aten::index_put_")
-_SLOT_ADDS = ("aten::scatter_", "aten::gather")
-
-
-class _Ranges:
-    """While open, each site's function (and each module's ``segment_sum``,
-    where it has one) runs inside a profiler range named after it."""
-
-    def __init__(self):
-        import importlib
-
-        self.patched = []
-        targets = [(f"site::{site}", module, name) for site, (module, name) in SUM_SITES.items()]
-        targets += [("segment_sum", module, "segment_sum") for module in _SUM_CALLERS]
-        for label, module, name in targets:
-            mod = importlib.import_module(f"dynamicfuion_python_tpu_torch.{module}")
-            if hasattr(mod, name):
-                self.patched.append((mod, name, getattr(mod, name), label))
-
-    @staticmethod
-    def _ranged(fn, label):
-        def call(*args, **kwargs):
-            with torch.profiler.record_function(label):
-                return fn(*args, **kwargs)
-        return call
-
-    def __enter__(self):
-        for mod, name, fn, label in self.patched:
-            setattr(mod, name, self._ranged(fn, label))
-        return self
-
-    def __exit__(self, *exc):
-        for mod, name, fn, _ in self.patched:
-            setattr(mod, name, fn)
-
-
-def sum_sites(events) -> dict:
-    """Device ms and launching operators of the float sums of a frame traced
-    inside :class:`_Ranges` (``prof.events()``), by site."""
-    sites: dict = {}
-    for evt in events:
-        own = device_us(evt)
-        if own <= 0 or getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
-            continue
-        ranges, parent = [], evt.cpu_parent
-        while parent is not None:
-            ranges.append(parent.name)
-            parent = parent.cpu_parent
-        site = next((r[len("site::"):] for r in ranges if r.startswith("site::")), None)
-        if site is None or not ("segment_sum" in ranges or evt.name in _ATOMIC_SUMS
-                                or (site == "jacobian_slots" and evt.name in _SLOT_ADDS)):
-            continue
-        row = sites.setdefault(site, {"device_ms": 0.0, "operators": 0})
-        row["device_ms"] += own / 1e3
-        row["operators"] += 1
-    return dict(sorted(sites.items(), key=lambda kv: -kv[1]["device_ms"]))
 
 
 def odometry_row(previous_depth, depth, intrinsics, params) -> dict:
@@ -297,11 +221,11 @@ def odometry_row(previous_depth, depth, intrinsics, params) -> dict:
     }
 
 
-def _timed_frame(pipe, frame):
+def _timed_frame(pipe, frame) -> float:
     t0 = time.perf_counter()
-    metrics = pipe.process_frame(frame.depth, frame.color)
+    pipe.process_frame(frame.depth, frame.color)
     torch.cuda.synchronize()
-    return metrics, time.perf_counter() - t0
+    return time.perf_counter() - t0
 
 
 def main(argv=None) -> int:
@@ -322,17 +246,28 @@ def main(argv=None) -> int:
     # the same frame from the same state, untraced: the profiler's own host
     # cost stretches the traced frame's wall time
     previous_depth = pipe.previous_depth
-    _, untraced_s = _timed_frame(copy.deepcopy(pipe), frames[-1])
+    untraced_s = _timed_frame(copy.deepcopy(pipe), frames[-1])
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with _Ranges(), torch.profiler.profile(activities=acts) as prof:
-        metrics, wall_s = _timed_frame(pipe, frames[-1])
-    sums = sum_sites(prof.events())
+    trace.reset()
+    trace.enable(True)
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            wall_s = _timed_frame(pipe, frames[-1])
+    finally:
+        trace.enable(False)
+    host = trace.snapshot()
+    device = trace.read_profile(prof.events())
+    spans = {
+        name: {"device_ms": device["device_ms"].get(name, 0.0), "launches": device["launches"].get(name, 0),
+               "self_host_ms": row["self_ms"], "idle_ms": device["idle_ms"].get(name, 0.0), "calls": row["calls"]}
+        for name, row in sorted(host["spans"].items(), key=lambda kv: -kv[1]["self_ms"])
+    }
     events = prof.key_averages()
     rows = sorted(
         ({"name": e.key, "device_ms": device_us(e) / 1e3, "calls": e.count} for e in events),
         key=lambda r: -r["device_ms"],
     )
-    kernel_rows = [r for r in rows if r["device_ms"] > 0 and not _is_range(r["name"])]
+    kernel_rows = [r for r in rows if r["device_ms"] > 0 and not r["name"].startswith(trace.PREFIX)]
     busy_ms = device_busy_ms(events)
     odometry = odometry_row(previous_depth, pipe.previous_depth, pipe.intrinsics, params)
     hand = {
@@ -355,11 +290,11 @@ def main(argv=None) -> int:
         "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / (untraced_s * 1e3),
         "traced_device_idle_share": 1.0 - busy_ms / (wall_s * 1e3),
-        "gn_iterations": len(metrics["data_loss"]),
         "hand_kernels": hand,
         "rigid_odometry": odometry,
-        "sums_device_ms": sum(r["device_ms"] for r in sums.values()),
-        "sums": sums,
+        "spans": spans,
+        "idle_outside_spans_ms": device["idle_ms"].get("none", 0.0),
+        "counters": host["counters"],
         "top_device_ops": kernel_rows[:25],
     }))
     return 0

@@ -26,6 +26,7 @@ from dynamicfuion_python_tpu_torch.models.pwcnet import PWCNet, upsample_flow_to
 from dynamicfuion_python_tpu_torch.ops.image_warp import grid_sample_normalized
 from dynamicfuion_python_tpu_torch.ops.segment_sum import segment_sum
 from dynamicfuion_python_tpu_torch.ops.warp import blend_warp
+from dynamicfuion_python_tpu_torch.utils import trace
 
 
 class DeformNetOutput(NamedTuple):
@@ -306,7 +307,7 @@ class DeformNet(nn.Module):
         if intrinsics.dim() == 2:
             intrinsics = intrinsics.expand(b, 3, 3)
         source_color, target_color = source[..., :3], target[..., :3]
-        with fp32_convolutions():
+        with trace.span("prior.flow"), fp32_convolutions():
             flow2, flow3, flow4, flow5, flow6, features2 = self.flow_net(source_color, target_color)
             flow = upsample_flow_to_full(flow2, (h, w))
             mask_prediction = mask_weights = None
@@ -325,15 +326,16 @@ class DeformNet(nn.Module):
             if self.enforce_bidirectional_consistency:
                 flow_back = upsample_flow_to_full(self.flow_net(target_color, source_color)[0], (h, w))
 
-        tracked = track_from_flow(
-            flow, source, target, graph_nodes, graph_edges, graph_edges_weights, graph_clusters,
-            pixel_anchors, pixel_weights, intrinsics,
-            gn_config=self.gn_config, guards=self.guards, mask_weights=mask_weights, flow_back=flow_back,
-            bidirectional_consistency_threshold=self.bidirectional_consistency_threshold,
-            initial_rotations=node_rotations_estimate, initial_translations=node_translations_estimate,
-            num_nodes=self.num_nodes or graph_nodes.shape[1], max_matches=self.gn_max_matches,
-            match_subsample_uniforms=match_subsample_uniforms,
-        )
+        with trace.span("prior.solve"):
+            tracked = track_from_flow(
+                flow, source, target, graph_nodes, graph_edges, graph_edges_weights, graph_clusters,
+                pixel_anchors, pixel_weights, intrinsics,
+                gn_config=self.gn_config, guards=self.guards, mask_weights=mask_weights, flow_back=flow_back,
+                bidirectional_consistency_threshold=self.bidirectional_consistency_threshold,
+                initial_rotations=node_rotations_estimate, initial_translations=node_translations_estimate,
+                num_nodes=self.num_nodes or graph_nodes.shape[1], max_matches=self.gn_max_matches,
+                match_subsample_uniforms=match_subsample_uniforms,
+            )
         return DeformNetOutput(
             flows=(flow2, flow3, flow4, flow5, flow6),
             node_rotations=tracked["node_rotations"],

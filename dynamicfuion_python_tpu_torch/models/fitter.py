@@ -57,6 +57,7 @@ from dynamicfuion_python_tpu_torch.ops.rasterize import rasterize_binned
 from dynamicfuion_python_tpu_torch.ops.segment_sum import segment_sum
 from dynamicfuion_python_tpu_torch.ops.warp import blend_warp
 from dynamicfuion_python_tpu_torch.parallel import spmd
+from dynamicfuion_python_tpu_torch.utils import trace
 from dynamicfuion_python_tpu_torch.utils.device import resolve_device
 
 
@@ -154,7 +155,7 @@ def _pixel_stage1(warped, px, py, ref_point, intrinsics):
     wx = warped[:, 0:9:3]
     wy = warped[:, 1:9:3]
     wz = warped[:, 2:9:3]
-    z = torch.maximum(wz, torch.tensor(1e-6, device=wz.device))
+    z = torch.maximum(wz, trace.upload(1e-6, wz.device, "fit.constants"))
     u = wx / z * fx + cxi
     v = wy / z * fy + cyi
     ax, ay = u[:, 0], v[:, 0]
@@ -167,7 +168,7 @@ def _pixel_stage1(warped, px, py, ref_point, intrinsics):
     safe_area = torch.where(torch.abs(area) > 1e-12, area, 1e-12)
     bary2d = torch.stack([e0, e1, e2], dim=-1) / safe_area[:, None]
     pw = bary2d / z
-    bary = pw / torch.maximum(torch.sum(pw, dim=-1), torch.tensor(1e-12, device=pw.device))[:, None]
+    bary = pw / torch.maximum(torch.sum(pw, dim=-1), trace.upload(1e-12, pw.device, "fit.constants"))[:, None]
     depth = torch.sum(bary * wz, dim=-1)
     prx = (px - cxi) / fx * depth
     pry = (py - cyi) / fy * depth
@@ -175,7 +176,7 @@ def _pixel_stage1(warped, px, py, ref_point, intrinsics):
     ny = torch.sum(bary * warped[:, 10:18:3], dim=-1)
     nz = torch.sum(bary * warped[:, 11:18:3], dim=-1)
     inv_norm = 1.0 / torch.maximum(
-        torch.sqrt(nx * nx + ny * ny + nz * nz), torch.tensor(1e-9, device=nx.device)
+        torch.sqrt(nx * nx + ny * ny + nz * nz), trace.upload(1e-9, nx.device, "fit.constants")
     )
     return inv_norm * (
         nx * (prx - ref_point[:, 0]) + ny * (pry - ref_point[:, 1]) + nz * (depth - ref_point[:, 2])
@@ -566,6 +567,7 @@ def gauss_newton_step(
     """One GN/LM iteration (see the module docstring). With ``group`` the
     reference points and mask are this rank's slab of the frame's rows
     (rank r of W holds rows [r h, (r + 1) h) of an h W-row frame)."""
+    trace.count("fit.gn_iterations")
     dev = canonical_vertices.device
     h, w = reference_mask.shape
     if group is not None:
@@ -578,112 +580,117 @@ def gauss_newton_step(
     trans_v = field.virtual_translations()
 
     # ---- association pass: warp, expand (B2), bin + rasterize (B1)
-    warped_vertices = blend_warp(canonical_vertices, pos_v, rot_v, trans_v, pre.anchors, pre.weights)
-    face_verts_pix, valid_faces, _ = expand_project_faces(
-        warped_vertices, canonical_triangles, intrinsics, near=1e-3, far=config.max_depth
-    )
-    frag, overflow = rasterize_binned(
-        face_verts_pix, valid_faces, (h, w),
-        faces_per_pixel=1, perspective_correct=True, cull_back_faces=False,
-        tile_size=config.tile_size, max_faces_per_bin=config.max_faces_per_bin,
-        return_overflow=True,
-    )
-    h_data, g_data, data_loss, n_covered, cap = data_normal_equations(
-        pos_v, rot_v, trans_v, canonical_vertices, canonical_normals, canonical_triangles,
-        pre, frag.face_indices[..., 0], reference_points, reference_mask, intrinsics, config, n, group,
-    )
+    with trace.span("fit.raster"):
+        warped_vertices = blend_warp(canonical_vertices, pos_v, rot_v, trans_v, pre.anchors, pre.weights)
+        face_verts_pix, valid_faces, _ = expand_project_faces(
+            warped_vertices, canonical_triangles, intrinsics, near=1e-3, far=config.max_depth
+        )
+        frag, overflow = rasterize_binned(
+            face_verts_pix, valid_faces, (h, w),
+            faces_per_pixel=1, perspective_correct=True, cull_back_faces=False,
+            tile_size=config.tile_size, max_faces_per_bin=config.max_faces_per_bin,
+            return_overflow=True,
+        )
+    with trace.span("fit.data_term"):
+        h_data, g_data, data_loss, n_covered, cap = data_normal_equations(
+            pos_v, rot_v, trans_v, canonical_vertices, canonical_normals, canonical_triangles,
+            pre, frag.face_indices[..., 0], reference_points, reference_mask, intrinsics, config, n, group,
+        )
 
     # ---- ARAP term
-    if config.use_regularization and field.edges.shape[0] > 0:
-        if field.coverage_method == NodeCoverageMethod.FIXED:
-            ew = arap_ops.edge_weights_fixed(field.edge_layer_indices, field.layer_decimation_radii)
+    with trace.span("fit.arap"):
+        if config.use_regularization and field.edges.shape[0] > 0:
+            if field.coverage_method == NodeCoverageMethod.FIXED:
+                ew = arap_ops.edge_weights_fixed(field.edge_layer_indices, field.layer_decimation_radii)
+            else:
+                ew = arap_ops.edge_weights_variable(field.edges, field.virtual_coverage_weights_squared())
+            term = arap_ops.compute_arap_term(
+                field.edges, pos_v, rot_v, trans_v, ew, config.arap_term_weight,
+                config.huber_constant if config.use_huber_penalty else None,
+            )
+            stem_diag, wing, wing_cols, corner, g_arap = arap_ops.assemble_arap_normal_equations(
+                term, field.edges, n, n0, max_deg
+            )
+            arap_loss = 0.5 * torch.sum(term.residuals**2)
         else:
-            ew = arap_ops.edge_weights_variable(field.edges, field.virtual_coverage_weights_squared())
-        term = arap_ops.compute_arap_term(
-            field.edges, pos_v, rot_v, trans_v, ew, config.arap_term_weight,
-            config.huber_constant if config.use_huber_penalty else None,
-        )
-        stem_diag, wing, wing_cols, corner, g_arap = arap_ops.assemble_arap_normal_equations(
-            term, field.edges, n, n0, max_deg
-        )
-        arap_loss = 0.5 * torch.sum(term.residuals**2)
-    else:
-        stem_diag = torch.zeros((n0, 6, 6), device=dev)
-        wing = torch.zeros((n0, max_deg, 6, 6), device=dev)
-        wing_cols = torch.full((n0, max_deg), -1, dtype=torch.int32, device=dev)
-        corner = torch.zeros((max(nc, 1) * 6, max(nc, 1) * 6), device=dev)
-        g_arap = torch.zeros((n * 6,), device=dev)
-        arap_loss = torch.zeros((), device=dev)
+            stem_diag = torch.zeros((n0, 6, 6), device=dev)
+            wing = torch.zeros((n0, max_deg, 6, 6), device=dev)
+            wing_cols = torch.full((n0, max_deg), -1, dtype=torch.int32, device=dev)
+            corner = torch.zeros((max(nc, 1) * 6, max(nc, 1) * 6), device=dev)
+            g_arap = torch.zeros((n * 6,), device=dev)
+            arap_loss = torch.zeros((), device=dev)
 
-    # ---- combine, damp, mask by iteration mode
-    gradient = g_data.reshape(-1) + g_arap
-    stem = h_data[:n0] + stem_diag
-    corner_total = corner
-    if nc > 0:
-        ci = torch.arange(nc, device=dev)
-        corner_total = corner_total.reshape(nc, 6, nc, 6).clone()
-        corner_total[ci, :, ci, :] += h_data[n0:]
-        corner_total = corner_total.reshape(nc * 6, nc * 6)
-    if mode == IterationMode.TRANSLATION_ONLY:
-        dof_mask = torch.tensor([0.0, 0.0, 0.0, 1.0, 1.0, 1.0], device=dev)
-    elif mode == IterationMode.ROTATION_ONLY:
-        dof_mask = torch.tensor([1.0, 1.0, 1.0, 0.0, 0.0, 0.0], device=dev)
-    else:
-        dof_mask = torch.ones(6, device=dev)
-    mask66 = dof_mask[:, None] * dof_mask[None, :]
-    lam = config.levenberg_marquardt_factor
-    # disabled dofs: masked out, identity on their diagonal (blocks stay SPD,
-    # their solution is exactly zero)
-    eye6 = torch.eye(6, device=dev)
-    stem = stem * mask66 + torch.diag(1.0 - dof_mask)[None] + lam * eye6
-    wing = wing * mask66[None, None]
-    if nc > 0:
-        corner_mask = dof_mask.repeat(nc)
-        corner_total = corner_total * (corner_mask[:, None] * corner_mask[None, :])
-        corner_total = corner_total + torch.diag((1.0 - dof_mask).repeat(nc))
-        corner_total = corner_total + lam * torch.eye(nc * 6, device=dev)
-    gradient = gradient * dof_mask.repeat(n)
+    # ---- combine, damp, mask by iteration mode; solve
+    with trace.span("fit.solve"):
+        gradient = g_data.reshape(-1) + g_arap
+        stem = h_data[:n0] + stem_diag
+        corner_total = corner
+        if nc > 0:
+            ci = torch.arange(nc, device=dev)
+            corner_total = corner_total.reshape(nc, 6, nc, 6).clone()
+            corner_total[ci, :, ci, :] += h_data[n0:]
+            corner_total = corner_total.reshape(nc * 6, nc * 6)
+        if mode == IterationMode.TRANSLATION_ONLY:
+            dof_mask = trace.upload([0.0, 0.0, 0.0, 1.0, 1.0, 1.0], dev, "fit.constants")
+        elif mode == IterationMode.ROTATION_ONLY:
+            dof_mask = trace.upload([1.0, 1.0, 1.0, 0.0, 0.0, 0.0], dev, "fit.constants")
+        else:
+            dof_mask = torch.ones(6, device=dev)
+        mask66 = dof_mask[:, None] * dof_mask[None, :]
+        lam = config.levenberg_marquardt_factor
+        # disabled dofs: masked out, identity on their diagonal (blocks stay SPD,
+        # their solution is exactly zero)
+        eye6 = torch.eye(6, device=dev)
+        stem = stem * mask66 + torch.diag(1.0 - dof_mask)[None] + lam * eye6
+        wing = wing * mask66[None, None]
+        if nc > 0:
+            corner_mask = dof_mask.repeat(nc)
+            corner_total = corner_total * (corner_mask[:, None] * corner_mask[None, :])
+            corner_total = corner_total + torch.diag((1.0 - dof_mask).repeat(nc))
+            corner_total = corner_total + lam * torch.eye(nc * 6, device=dev)
+        gradient = gradient * dof_mask.repeat(n)
 
-    if nc > 0:
-        matrix = BlockSparseArrowheadMatrix(stem, wing, wing_cols, corner_total)
-        solution, escalations, mu = solve_block_sparse_arrowhead(matrix, gradient)
-        # residual against the system actually factorized (H + mu on the
-        # corner diagonal)
-        h_sol = arrowhead_matvec(matrix, solution)
-        h_sol = torch.cat([h_sol[: n0 * 6], h_sol[n0 * 6 :] + mu * solution[n0 * 6 :]])
-    else:
-        solution = solve_block_diagonal_cholesky(stem, gradient.reshape(n, 6)).reshape(-1)
-        escalations = torch.zeros((), dtype=torch.int32, device=dev)
-        mu = torch.zeros((), device=dev)
-        h_sol = torch.einsum("nab,nb->na", stem, solution.reshape(n, 6)).reshape(-1)
-    delta = solution.reshape(n, 6) * dof_mask[None, :]
+        if nc > 0:
+            matrix = BlockSparseArrowheadMatrix(stem, wing, wing_cols, corner_total)
+            solution, escalations, mu = solve_block_sparse_arrowhead(matrix, gradient)
+            # residual against the system actually factorized (H + mu on the
+            # corner diagonal)
+            h_sol = arrowhead_matvec(matrix, solution)
+            h_sol = torch.cat([h_sol[: n0 * 6], h_sol[n0 * 6 :] + mu * solution[n0 * 6 :]])
+        else:
+            solution = solve_block_diagonal_cholesky(stem, gradient.reshape(n, 6)).reshape(-1)
+            escalations = torch.zeros((), dtype=torch.int32, device=dev)
+            mu = torch.zeros((), device=dev)
+            h_sol = torch.einsum("nab,nb->na", stem, solution.reshape(n, 6)).reshape(-1)
+        delta = solution.reshape(n, 6) * dof_mask[None, :]
 
     # ---- valid-solve guard: physical limits + solve-residual conditioning;
     # an invalid iteration applies zero delta
-    trans_limit = config.valid_solve_translation_limit or max(4.0 * field.node_coverage, 0.4)
-    g_norm = torch.linalg.norm(gradient)
-    rel_residual = torch.linalg.norm(h_sol - gradient) / torch.clamp(g_norm, min=1e-20)
-    residual_tol = torch.where(
-        escalations > 0,
-        torch.tensor(config.valid_solve_escalated_residual_tolerance, device=dev),
-        torch.tensor(config.valid_solve_residual_tolerance, device=dev),
-    )
-    valid_solve = (
-        torch.all(torch.isfinite(delta))
-        & (torch.amax(torch.abs(delta[:, :3])) < config.valid_solve_rotation_limit)
-        & (torch.amax(torch.abs(delta[:, 3:])) < trans_limit)
-        & ((rel_residual < residual_tol) | (g_norm < 1e-12))
-    )
-    delta = torch.where(valid_solve, delta, 0.0)
-    field = field.rotate_nodes_virtual(delta[:, :3]).translate_nodes_virtual(delta[:, 3:])
-    max_update = torch.amax(torch.abs(delta))
-    if group is not None:
-        # every rank continues from rank 0's update (the card's atomics may
-        # have summed the ARAP blocks in another order on each rank)
-        rot, trans, max_update, valid_solve = spmd.replicate(
-            [field.node_rotations, field.node_translations, max_update, valid_solve], group
+    with trace.span("fit.guard"):
+        trans_limit = config.valid_solve_translation_limit or max(4.0 * field.node_coverage, 0.4)
+        g_norm = torch.linalg.norm(gradient)
+        rel_residual = torch.linalg.norm(h_sol - gradient) / torch.clamp(g_norm, min=1e-20)
+        residual_tol = torch.where(
+            escalations > 0,
+            trace.upload(config.valid_solve_escalated_residual_tolerance, dev, "fit.constants"),
+            trace.upload(config.valid_solve_residual_tolerance, dev, "fit.constants"),
         )
-        field = field.replace(node_rotations=rot, node_translations=trans)
+        valid_solve = (
+            torch.all(torch.isfinite(delta))
+            & (torch.amax(torch.abs(delta[:, :3])) < config.valid_solve_rotation_limit)
+            & (torch.amax(torch.abs(delta[:, 3:])) < trans_limit)
+            & ((rel_residual < residual_tol) | (g_norm < 1e-12))
+        )
+        delta = torch.where(valid_solve, delta, 0.0)
+        field = field.rotate_nodes_virtual(delta[:, :3]).translate_nodes_virtual(delta[:, 3:])
+        max_update = torch.amax(torch.abs(delta))
+        if group is not None:
+            # every rank continues from rank 0's update (the card's atomics may
+            # have summed the ARAP blocks in another order on each rank)
+            rot, trans, max_update, valid_solve = spmd.replicate(
+                [field.node_rotations, field.node_translations, max_update, valid_solve], group
+            )
+            field = field.replace(node_rotations=rot, node_translations=trans)
 
     # fraction of covered pixels the compaction cap kept (1.0 = none dropped)
     if cap is not None:
@@ -727,8 +734,9 @@ def fit_to_image(
     max_deg = _max_wing_degree(field)
 
     with torch.no_grad():
-        pre = precompute_face_associations(field, verts, tris)
-        normals = mesh_vertex_normals(verts, tris)
+        with trace.span("fit.setup"):
+            pre = precompute_face_associations(field, verts, tris)
+            normals = mesh_vertex_normals(verts, tris)
         runs: list[list] = []
         for iteration in range(config.max_iterations):
             mode = config.mode_for_iteration(iteration)
@@ -761,14 +769,16 @@ def fit_to_image(
         for mode, count, (rp, rm, intr_v) in segments:
             done = []
             for _ in range(count):
-                out = gauss_newton_step(
-                    field, verts, tris, normals, pre, rp, rm, intr_v, config, mode, max_deg, group=group
-                )
-                field = out.field
-                done.append(out)
-                # convergence exit (one host sync per iteration)
-                if use_while and float(out.max_update) <= config.min_update_threshold:
-                    break
+                with trace.span("fit.iteration"):
+                    out = gauss_newton_step(
+                        field, verts, tris, normals, pre, rp, rm, intr_v, config, mode, max_deg, group=group
+                    )
+                    field = out.field
+                    done.append(out)
+                    # convergence exit (one host read per iteration)
+                    if use_while and trace.host_read(out.max_update, "fit.exit") <= config.min_update_threshold:
+                        trace.count("fit.early_exits")
+                        break
             steps.extend(done + [done[-1]] * (count - len(done)))
 
     diagnostics = {

@@ -19,6 +19,7 @@ import torch
 from dynamicfuion_python_tpu_torch.models.deform_net import TrackingGuards, track_from_flow
 from dynamicfuion_python_tpu_torch.models.gn_point_cloud_optimizer import GnConfig
 from dynamicfuion_python_tpu_torch.ops.camera import unproject_depth_image
+from dynamicfuion_python_tpu_torch.utils import trace
 
 
 class PriorResult(NamedTuple):
@@ -79,7 +80,7 @@ class NeuralTrackingPrior:
             valid, mask = out.valid_solve[0], out.valid_correspondence_mask[0]
         else:
             raise ValueError("NeuralTrackingPrior needs either a flow_override or a DeformNet")
-        return PriorResult(rotations, translations, bool(valid), mask)
+        return PriorResult(rotations, translations, bool(trace.host_read(valid, "prior.valid")), mask)
 
 
 def _image_tensor(image, device) -> torch.Tensor:
@@ -88,7 +89,7 @@ def _image_tensor(image, device) -> torch.Tensor:
     image = np.asarray(image)
     if image.dtype == np.uint16:  # few torch ops take uint16
         image = image.astype(np.int32)
-    return torch.as_tensor(image, device=device)
+    return trace.upload(image, device, "prior.image")
 
 
 def rgbxyz_from_depth(depth, color, intrinsics, depth_scale: float, depth_max: float, device=None) -> torch.Tensor:

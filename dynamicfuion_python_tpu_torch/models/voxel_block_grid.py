@@ -31,12 +31,13 @@ from dynamicfuion_python_tpu_torch.ops.compaction import compact_mask_indices
 from dynamicfuion_python_tpu_torch.ops.marching_cubes import marching_cubes
 from dynamicfuion_python_tpu_torch.ops.marching_tetrahedra import marching_tetrahedra
 from dynamicfuion_python_tpu_torch.ops.warp import blend_warp
+from dynamicfuion_python_tpu_torch.utils import trace
 from dynamicfuion_python_tpu_torch.utils.device import resolve_device
 
 
 def _cube_offsets(values, dtype, device) -> torch.Tensor:
-    return torch.tensor(
-        [[a, b, c] for a in values for b in values for c in values], dtype=dtype, device=device
+    return trace.upload(
+        [[a, b, c] for a in values for b in values for c in values], device, "volume.offsets", dtype
     )
 
 
@@ -364,7 +365,7 @@ class VoxelBlockGrid:
         valid_p[:, :r, :r, :r] = weight_ok(self.weight)
 
         def neighbor_data(offset):
-            keys = vbh.pack_block_keys(coords + torch.tensor(offset, dtype=torch.int32, device=dev))
+            keys = vbh.pack_block_keys(coords + trace.upload(offset, dev, "mesh.offsets", torch.int32))
             slots, found = self.find_block_slots(keys)
             slots = slots.long()
             return self.tsdf[slots], weight_ok(self.weight[slots]) & found[:, None, None, None]
@@ -423,7 +424,8 @@ class VoxelBlockGrid:
         sentinel = 2**31 - 1
         q = torch.round(verts / 1e-6).to(torch.int32)
         q = torch.where(tri_valid.repeat_interleave(3)[:, None], q, sentinel)
-        uq, inv = torch.unique(q, dim=0, return_inverse=True)
+        with trace.blocking("volume.unique"):
+            uq, inv = torch.unique(q, dim=0, return_inverse=True)
         # fixed size max_vertices + 1, padded with the sentinel row (which
         # sorts last); ids past the size clamp to the last row
         size = max_vertices + 1

@@ -21,6 +21,7 @@ import torch
 
 from dynamicfuion_python_tpu_torch.ops.linalg.rodrigues import skew
 from dynamicfuion_python_tpu_torch.ops.segment_sum import segment_sum
+from dynamicfuion_python_tpu_torch.utils import trace
 
 
 class ArapTerm(NamedTuple):
@@ -57,7 +58,7 @@ def compute_arap_term(
 
 
 def edge_weights_fixed(edge_layer_indices, layer_decimation_radii: tuple) -> torch.Tensor:
-    radii = torch.tensor(layer_decimation_radii, dtype=torch.float32, device=edge_layer_indices.device)
+    radii = trace.upload(layer_decimation_radii, edge_layer_indices.device, "arap.radii", torch.float32)
     return radii[edge_layer_indices.long()]
 
 

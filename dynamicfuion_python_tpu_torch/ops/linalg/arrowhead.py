@@ -27,6 +27,7 @@ from dynamicfuion_python_tpu_torch.ops.linalg.block_ops import (
     invert_spd_blocks,
 )
 from dynamicfuion_python_tpu_torch.ops.segment_sum import segment_sum
+from dynamicfuion_python_tpu_torch.utils import trace
 
 #: escalation steps of the corner damping (first try is undamped)
 _MAX_ESCALATIONS = 4
@@ -117,10 +118,16 @@ def _cholesky_with_escalating_damping(matrix: torch.Tensor):
     factors, info = torch.linalg.cholesky_ex(candidates)
     ok = info == 0
     tries = torch.where(
-        ok.any(), torch.argmax(ok.to(torch.int32)), torch.tensor(_MAX_ESCALATIONS, device=ok.device)
+        ok.any(), torch.argmax(ok.to(torch.int32)),
+        trace.upload(_MAX_ESCALATIONS, ok.device, "arrowhead.escalations"),
     )
-    factor = torch.where(ok[tries] | ~_lower_mask(matrix), factors[tries], torch.nan)
-    return factor, tries.to(torch.int32), mus[tries]
+    # each index by the 0-d ``tries`` is a host read of it
+    factor = torch.where(
+        ok[trace.host_read(tries, "arrowhead.tries")] | ~_lower_mask(matrix),
+        factors[trace.host_read(tries, "arrowhead.tries")],
+        torch.nan,
+    )
+    return factor, tries.to(torch.int32), mus[trace.host_read(tries, "arrowhead.tries")]
 
 
 def arrowhead_matvec(matrix: BlockSparseArrowheadMatrix, x: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from dynamicfuion_python_tpu_torch.ops.compaction import compact_mask_indices
+from dynamicfuion_python_tpu_torch.utils import trace
 
 # corner i sits at ((i>>0)&1, (i>>1)&1, (i>>2)&1)
 _CORNERS = np.array(
@@ -148,9 +149,9 @@ def marching_cubes(
     r = rp - 1
     dev = tsdf.device
     corners_i = _CORNERS.astype(int)
-    case_table = torch.as_tensor(_CASE_TABLE, dtype=torch.int64, device=dev)
-    edges = torch.as_tensor(_EDGES, dtype=torch.int64, device=dev)
-    corners = torch.as_tensor(corners_i, dtype=torch.int64, device=dev)
+    case_table = trace.upload(_CASE_TABLE, dev, "mesh.tables", torch.int64)
+    edges = trace.upload(_EDGES, dev, "mesh.tables", torch.int64)
+    corners = trace.upload(corners_i, dev, "mesh.tables", torch.int64)
 
     tsdf_t = tsdf.permute(1, 2, 3, 0)  # [R+1, R+1, R+1, B]
     valid_t = valid.permute(1, 2, 3, 0)
@@ -161,7 +162,7 @@ def marching_cubes(
         ok = valid_t[cx_ : cx_ + r, cy_ : cy_ + r, cz_ : cz_ + r, :]
         case = case + (cv < 0.0).to(torch.int64) * (1 << ci)
         cell_ok = cell_ok & ok
-    tri_count = torch.as_tensor(_CASE_TRI_COUNT, device=dev)[case] * cell_ok
+    tri_count = trace.upload(_CASE_TRI_COUNT, dev, "mesh.tables")[case] * cell_ok
 
     cells = r * r * r * b
     flat_case = case.reshape(-1)

@@ -25,6 +25,7 @@ import ctypes
 import torch
 
 from dynamicfuion_python_tpu_torch.ops import native
+from dynamicfuion_python_tpu_torch.utils import trace
 from dynamicfuion_python_tpu_torch.utils.device import resolve_device
 
 _ARGTYPES = [
@@ -104,7 +105,7 @@ def expand_project_faces_cuda(
         native.stream_handle(dev),
     )
     native.check(status, "mesh_expand")
-    native.launch_counts["mesh_expand"] += 1
+    trace.count("b2.launches")
     return out, valid
 
 

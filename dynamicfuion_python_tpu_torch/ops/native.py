@@ -7,9 +7,9 @@ in ``.gitignore``), named by a hash of their source so an edited kernel is
 rebuilt; ``build_kernels`` starts one ``nvcc`` per source, all at once.
 
 Every C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`check` raises when that is not 0. Launch counts
-are plain integers in :data:`launch_counts`, one per kernel, incremented by
-the wrapper that launches it.
+``cudaGetLastError()``; :func:`check` raises when that is not 0. The wrapper
+that launches a kernel counts it in ``utils/trace.py``'s counters
+(``b1.launches`` for ``rasterize_tiles``, ``b2.launches`` for ``mesh_expand``).
 """
 
 from __future__ import annotations
@@ -38,13 +38,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-launch_counts: dict[str, int] = {name: 0 for name in KERNELS}
 _entry_points: dict[tuple[str, str], tuple] = {}
-
-
-def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
 
 
 def nvcc_path() -> str:

@@ -26,6 +26,7 @@ import torch
 from dynamicfuion_python_tpu_torch.ops import native
 from dynamicfuion_python_tpu_torch.ops.compaction import compact_mask_indices
 from dynamicfuion_python_tpu_torch.ops.mesh_expand import expand_project_faces
+from dynamicfuion_python_tpu_torch.utils import trace
 
 BG_DEPTH = 3.0e38
 _INT_MAX = 2**31 - 1
@@ -477,7 +478,7 @@ def rasterize_tiles_cuda(
         native.stream_handle(dev),
     )
     native.check(status, "rasterize_tiles")
-    native.launch_counts["rasterize_tiles"] += 1
+    trace.count("b1.launches")
     return face_out, depth_out, bary_out, dist_out
 
 

@@ -32,6 +32,8 @@ import math
 
 import torch
 
+from dynamicfuion_python_tpu_torch.utils import trace
+
 #: the card sums up to this many segments as a one-hot product, more with
 #: the sorted form (PERF.md: the product's work grows with the segment
 #: count; the sorted form's is a sort and a few passes over the rows)
@@ -170,6 +172,7 @@ def segment_sum(values, seg, num_segments: int, acc=None) -> torch.Tensor:
         form = _index_add_sum
     elif values.device.type == "cuda":
         form = segment_sum_onehot if num_segments <= ONEHOT_MAX_SEGMENTS else segment_sum_sorted
+        trace.count("segment_sum.onehot" if form is segment_sum_onehot else "segment_sum.sorted")
     else:
         raise RuntimeError(f"segment_sum: no form for device {values.device}")
     if torch.is_grad_enabled() and (values.requires_grad or (acc is not None and acc.requires_grad)):

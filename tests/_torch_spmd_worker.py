@@ -59,7 +59,6 @@ def _frame_loop(params, frames, intrinsics, group):
 
 def run(rank: int, world: int, tmp: str) -> None:
     from dynamicfuion_python_tpu_torch.models import fitter
-    from dynamicfuion_python_tpu_torch.ops import native
     from dynamicfuion_python_tpu_torch.ops.rigid_odometry import rigid_odometry_multi_scale
     from dynamicfuion_python_tpu_torch.parallel import distributed, spmd
 
@@ -92,6 +91,5 @@ def run(rank: int, world: int, tmp: str) -> None:
     depths = [torch.as_tensor(f["depth"].astype(np.int32)) for f in inputs["odometry_frames"]]
     pose, rmse = rigid_odometry_multi_scale(depths[0], depths[1], torch.as_tensor(inputs["intrinsics"]), group=group)
     out["odometry"] = {"pose": pose.numpy(), "rmse": float(rmse)}
-    native.reset_launch_counts()
     out["loop"] = _frame_loop(inputs["params"], inputs["frames"], inputs["intrinsics"], group)
     torch.save(out, tmp / f"rank{rank}.pt")

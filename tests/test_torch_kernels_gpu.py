@@ -1,21 +1,27 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, the
-segment sums' card forms against the CPU's ``index_add_``, and the training
+segment sums' card forms against the CPU's ``index_add_``, the training
 step's backwards (gathers, flow upsampling, bilinear sampling, convolutions
-under ``fp32_step``) repeating bit for bit, on the card.
+under ``fp32_step``) repeating bit for bit, and a frame's waits on the card
+all going through ``utils/trace.py``, on the card.
 Every test here needs a CUDA device and skips without one; the file
 imports nothing of JAX, so it runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 """
 
+import collections
+import traceback
+import warnings
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from dynamicfuion_python_tpu_torch.ops import mesh_expand as me
-from dynamicfuion_python_tpu_torch.ops import native
 from dynamicfuion_python_tpu_torch.ops import rasterize as rz
 from dynamicfuion_python_tpu_torch.ops import segment_sum as ss
+from dynamicfuion_python_tpu_torch.utils import trace
 
 INTR = np.asarray([[672.0, 0.0, 320.0], [0.0, 672.0, 240.0], [0.0, 0.0, 1.0]], np.float32)
 SIZE = (480, 640)
@@ -98,10 +104,10 @@ def test_mesh_expand_kernel_is_bit_equal(card):
     rng = np.random.default_rng(0)
     verts, faces = _mesh(rng, 40_000, 65_536)
     v, f, k = (torch.as_tensor(a, device=card) for a in (verts, faces, INTR))
-    before = native.launch_counts["mesh_expand"]
+    before = trace.counter("b2.launches")
     fv, valid, s2o = me.expand_project_faces(v, f, k, 1e-3, 10.0)
     torch.cuda.synchronize()
-    assert native.launch_counts["mesh_expand"] == before + 1
+    assert trace.counter("b2.launches") == before + 1
     pfv, pvalid = me.expand_project_faces_plain(v, f, k, 1e-3, 10.0)
     assert torch.equal(valid, pvalid) and 0 < int(valid.sum()) < len(faces)
     # --fmad=false: every operation rounds as PyTorch's elementwise ops do
@@ -176,10 +182,10 @@ def test_rasterize_tiles_kernel_matches_plain(card, mesh):
     if mesh == "tile32_deep_bins":
         assert int((bins.table >= 0).sum(1).max()) > 256
     faces9 = fv.reshape(-1, 9)
-    before = native.launch_counts["rasterize_tiles"]
+    before = trace.counter("b1.launches")
     got = rz.rasterize_tiles(faces9, bins.table, size, tile_size, **opts)
     torch.cuda.synchronize()
-    assert native.launch_counts["rasterize_tiles"] == before + 1
+    assert trace.counter("b1.launches") == before + 1
     want = rz.rasterize_tiles_plain(faces9, bins.table, size, tile_size, **opts)
     assert got[0].shape == size and got[2].shape == (*size, 3)
     assert int((got[0] >= 0).sum()) > 10_000
@@ -417,3 +423,64 @@ def test_conv_backward_repeats_under_fp32_step(card, layer):
         assert all(torch.equal(a, b) for a, b in zip(grads(card, torch.float32), first))
     for got, want in zip(first, grads("cpu", torch.float64)):
         assert float((got.double().cpu() - want).abs().max()) <= 2e-4 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prior", [False, True], ids=["fusion480", "prior448"])
+def test_a_frame_waits_on_the_card_only_through_the_trace_module(card, prior, tmp_path):
+    """One steady frame of the 480x640 slice (448x640 with the neural prior
+    on seeded DeformNet weights) under ``set_sync_debug_mode("warn")`` with
+    tracing on: every synchronizing call the card reports happens inside a
+    ``host_read.*`` or ``host_write.*`` span of ``utils/trace.py``; any
+    other is named by its innermost frames in the port."""
+    from dynamicfuion_python_tpu_torch.apps.fusion_pipeline import FusionPipeline
+    from dynamicfuion_python_tpu_torch.apps.profile_frame import PRIOR_IMAGE_SIZE, SLICE_IMAGE_SIZE, make_slice
+    from dynamicfuion_python_tpu_torch.models import deform_net as dn
+    from dynamicfuion_python_tpu_torch.utils.config import apply_overrides
+
+    params, seq = make_slice(5, PRIOR_IMAGE_SIZE if prior else SLICE_IMAGE_SIZE)
+    if prior:
+        path = tmp_path / "deform_net.pt"
+        torch.save(dn.seeded_state_dict(dn.DeformNet(), torch.Generator().manual_seed(3)), path)
+        params = apply_overrides(params, ["fusion.use_neural_prior=true", f"fusion.prior_checkpoint={path}"])
+    frames = list(seq)
+    pipe = FusionPipeline(params, seq.intrinsics)
+    pipe.initialize(frames[0].depth, frames[0].color)
+    for f in frames[1:4]:
+        pipe.process_frame(f.depth, f.color)
+    torch.cuda.synchronize()
+    package = str(Path(trace.__file__).resolve().parents[1])
+    counted, outside = 0, collections.Counter()
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        nonlocal counted
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        open_spans = [s.name for s in trace.spans() if not s.end_ns]
+        if open_spans and open_spans[-1].startswith(("host_read.", "host_write.")):
+            counted += 1
+            return
+        here = [fr for fr in traceback.extract_stack()[:-1] if fr.filename.startswith(package)][-3:]
+        outside[" <- ".join(f"{Path(fr.filename).name}:{fr.lineno}" for fr in reversed(here))] += 1
+
+    trace.reset()
+    trace.enable(True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            # the mode's own notice ("... does not yet detect all synchronizing
+            # operations", once a process) is raised here, before ``show``
+            torch.cuda.set_sync_debug_mode("warn")
+            warnings.showwarning = show
+            try:
+                pipe.process_frame(frames[4].depth, frames[4].color)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        waits = {k: v for k, v in trace.snapshot()["counters"].items() if k.startswith(("host_read.", "host_write."))}
+    finally:
+        trace.enable(False)
+        trace.reset()
+    assert not outside, f"synchronizing calls outside the trace module: {dict(outside)}"
+    # torch.unique's wait is counted (``blocking``) but not reported by the card
+    assert 0 < counted <= sum(waits.values()), (counted, waits)
