@@ -13,14 +13,16 @@ non-zero, on any failure):
      default Parameters, rigid odometry on, with capacity overrides only:
      mesh capacity 65536, block table 4096 and 2048 active blocks so the
      scene fits), frame 0 + 5 fitted frames; every GN iteration must go
-     through both kernels, and odometry must run on every frame from 2 on;
+     through the three kernels, and odometry must run on every frame from 2 on;
      then the same frames from a fresh pipeline must leave the same bits
      (nodes, rotations, translations, the TSDF values and weights of the
      occupied blocks, the canonical mesh; both digests printed);
   3. kernels: each kernel against its plain PyTorch version on the inputs
      of the main path's last launch (the warped mesh of the last frame's
-     last GN iteration), timed with CUDA events and the profiler beside its
-     bound (counted from those inputs) and an empty kernel's launch floor
+     last GN iteration; for the face data term's rows, phase 7's inputs,
+     which must give the plain rows, segments, weights and residuals bit for
+     bit), timed with CUDA events and the profiler beside its bound (counted
+     from those inputs) and, for B1 and B2, an empty kernel's launch floor
      on the kernel's own grid;
   4. odometry: rigid_odometry_multi_scale on the card, under
      torch.cuda.set_sync_debug_mode("error"), on the main path's last depth
@@ -121,9 +123,10 @@ non-zero, on any failure):
      both kernels launched in both ranks; frame wall time for 1 and 2 ranks.
 Phases 2, 8-15 and 17 each set the kernels' launch counts to 0 before they
 drive their path and read them after: every kernel of a path must have
-launched in it (phase 13's path runs B2 only: its splat is plain PyTorch;
-phase 14's runs neither, training rasterizes nothing, nor do phases 15 and
-16: SOD and the leaf ops rasterize nothing either). Each phase prints a start line
+launched in it (phases 10 and 12 render without fitting: B1 and B2 only;
+phase 13's path runs B2 only: its splat is plain PyTorch; phase 14's runs
+none, training rasterizes nothing, nor do phases 15 and 16: SOD and the
+leaf ops rasterize nothing either). Each phase prints a start line
 first. The kernels line (phase 3's measurements, each path's launch counts
 and the new shapes' times) comes next, and the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -150,6 +153,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 # per face of the expansion: 3 corners x (2 divisions, 2 multiplies, 2 adds)
 EXPAND_OPS_PER_FACE = 18
+# the kernels a path that rasterizes without fitting launches (renderer, ray
+# cast read-out); the fitter's paths launch every kernel of native.KERNELS
+RASTER_KERNELS = ("rasterize_tiles", "mesh_expand")
 
 
 def emit(obj) -> None:
@@ -170,10 +176,12 @@ def reset_counters() -> None:
 
 
 def kernel_launches() -> dict:
-    """B1's and B2's launches since the counters were last zeroed."""
+    """The kernels' launches (B1, B2, the face data term's rows) since the
+    counters were last zeroed."""
     from dynamicfuion_python_tpu_torch.utils import trace
 
-    return {"rasterize_tiles": trace.counter("b1.launches"), "mesh_expand": trace.counter("b2.launches")}
+    return {"rasterize_tiles": trace.counter("b1.launches"), "mesh_expand": trace.counter("b2.launches"),
+            "face_data_rows": trace.counter("face_rows.launches")}
 
 
 def pose_summary(extrinsics) -> dict:
@@ -498,6 +506,8 @@ def _main_path_state(pipe) -> dict:
 def phase_kernels(last, launches, fitted_frames):
     import torch
 
+    from dynamicfuion_python_tpu_torch.models import fitter
+    from dynamicfuion_python_tpu_torch.ops import face_data_rows as fr
     from dynamicfuion_python_tpu_torch.ops import mesh_expand as me
     from dynamicfuion_python_tpu_torch.ops import rasterize as rz
 
@@ -549,6 +559,23 @@ def phase_kernels(last, launches, fitted_frames):
         ]
         for name, grid in (("rasterize_tiles", b1_grid), ("mesh_expand", b2_grid))
     }
+    # the face data term's rows on the main path's first GN inputs (phase 7's)
+    args = last["data_term"].first_args
+    call = fitter._face_row_inputs(*args)
+    fr_got = fr.face_data_rows_cuda(*call)
+    fr_want = fitter._face_rows_plain(*call)
+    torch.cuda.synchronize()
+    fr_equal = {name: bool(torch.equal(a, b)) for name, a, b in zip(("rows", "seg", "weight", "residuals"),
+                                                                      fr_got, fr_want)}
+    check(all(fr_equal.values()), f"face_data_rows: not bit-equal to the plain rows on phase 7's inputs ({fr_equal})")
+    del fr_got, fr_want
+    fr_ms = cuda_time_ms(lambda: fr.face_data_rows_cuda(*call), 50)
+    fr_plain = cuda_time_ms(lambda: fitter._face_rows_plain(*call), 5, warmup=1)
+    f_tris, _, face_nodes, slots, frag, _, mask = call[5:12]
+    fr_work = fr.face_data_rows_work(f_tris, face_nodes, slots, frag, mask, *call[14:16])
+    fr_bound = fr_work["bytes"] / PEAK_BYTES_PER_S * 1e3
+    fr_device_ms = device_ms_per_launch({"face_data_rows_kernel": lambda: fr.face_data_rows_cuda(*call)}, 20)
+
     occ = (table >= 0).sum(1)
     emit({
         "phase": "kernels", "faces": n_faces, "vertices": n_verts, "image_size": list(image_size),
@@ -587,6 +614,18 @@ def phase_kernels(last, launches, fitted_frames):
             "bound_by": "bytes" if b2_bytes / PEAK_BYTES_PER_S > b2_ops / PEAK_FP32_PER_S else "operations",
             "launch_floor_device_ms": floor_device_ms["mesh_expand"],
             "operations": b2_ops, "bytes": b2_bytes,
+            "library_ms": None,
+        },
+        {
+            "name": "face_data_rows", "route": "cuda",
+            "source": "dynamicfuion_python_tpu_torch/csrc/face_data_rows.cu",
+            "replaces": "models/fitter.py::_face_rows_plain (plain PyTorch; no TPU kernel)",
+            "launches": launches["face_data_rows"],
+            "launches_per_frame": launches["face_data_rows"] / fitted_frames,
+            "pixels": fr_work["pixels"], "faces": fr_work["faces"], "nodes": fr_work["nodes"],
+            "bit_equal": fr_equal, "inputs_sha1": tensor_digest(list(args)),
+            "ms": fr_ms, "device_ms": fr_device_ms["face_data_rows_kernel"],
+            "plain_ms": fr_plain, "bound_ms": fr_bound, "bound_by": "bytes", "bytes": fr_work["bytes"],
             "library_ms": None,
         },
     ]
@@ -1156,7 +1195,7 @@ def phase_renderer(pipe):
     finally:
         b1.restore()
     launches = kernel_launches()
-    for kernel in native.KERNELS:
+    for kernel in RASTER_KERNELS:
         check(launches[kernel] > 0, f"renderer: kernel {kernel} was not launched")
     with plain_kernels():
         p_color, p_depth = renderer.render_mesh(verts, tris)
@@ -1329,7 +1368,7 @@ def phase_volume_readout(pipe):
     _, depth_r = renderer.render_mesh(verts, faces)
     torch.cuda.synchronize()
     launches = kernel_launches()
-    for kernel in native.KERNELS:
+    for kernel in RASTER_KERNELS:
         check(launches[kernel] > 0, f"volume read-out: kernel {kernel} was not launched")
     both = rays["mask"] & (depth_r > 0)
     diff = (rays["depth"] - depth_r)[both].abs().cpu().numpy()
@@ -2138,7 +2177,7 @@ def main() -> int:
         k["launches_sod"] = sod_launches[k["name"]]
         k["launches_leaf_ops"] = leaf_launches[k["name"]]
         k["launches_spmd"] = spmd_launches[k["name"]]
-    b1_row, b2_row = kernels
+    b1_row, b2_row = kernels[:2]
     b1_row["renderer_bin_capacity_1024"] = renderer["b1"]
     b2_row["indexed_4470784_faces"] = b2_headline
     emit({"phase": "done", "seconds": time.perf_counter() - started})

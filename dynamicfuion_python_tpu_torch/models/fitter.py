@@ -13,10 +13,12 @@ Fragment face ids are frozen per iteration; the residual's derivatives with
 respect to the 18 warped vertex/normal scalars of its face come from
 autograd of the scalarized pixel function (stage 1), the warp jacobians are
 analytic (stage 2, per face), and the chain rule runs per covered pixel
-(stage 3). The JAX package's one-hot MXU contractions are
-``ops/segment_sum.py::segment_sum`` over N rows (the JAX overflow row N is
-dropped): ``index_add_`` on the CPU, a one-hot product on the card, so the
-card repeats bit for bit. The ``"fast"`` term runs the same
+(stage 3). On card tensors the ``"face"`` term's rows come from one CUDA
+kernel (``ops/face_data_rows.py``) that repeats these plain stages bit for
+bit; on CPU tensors from the plain stages. The JAX package's one-hot MXU
+contractions are ``ops/segment_sum.py::segment_sum`` over N rows (the JAX
+overflow row N is dropped): ``index_add_`` on the CPU, a one-hot product on
+the card, so the card repeats bit for bit. The ``"fast"`` term runs the same
 stages per pixel without compaction; the ``"autodiff"`` term differentiates
 the whole per-pixel chain with ``torch.func`` (``vmap(jacrev)``).
 
@@ -44,6 +46,7 @@ from dynamicfuion_python_tpu_torch.models.warp_field import (
 from dynamicfuion_python_tpu_torch.ops import arap as arap_ops
 from dynamicfuion_python_tpu_torch.ops.anchors import compute_anchors_euclidean
 from dynamicfuion_python_tpu_torch.ops.compaction import compact_mask_indices
+from dynamicfuion_python_tpu_torch.ops.face_data_rows import face_data_rows_cuda
 from dynamicfuion_python_tpu_torch.ops.linalg import (
     BlockSparseArrowheadMatrix,
     arrowhead_matvec,
@@ -263,15 +266,17 @@ def _chain_rule(grad18, ro, rn, wg, sid):
     return list(jac)
 
 
-def _assemble_normal_equations(jac, residuals, ok, slot_nodes, config: FitterConfig, n: int, chain=None):
-    """Robust weights, then the per-node 6x6 blocks and gradient rows of the
-    data term: ``jac`` is 6 tensors [P, 12], ``slot_nodes`` int[P, 12] the
-    node of each slot (-1 pad). ``chain`` (a row shard's) adds the rows
-    after the ranks before this one and returns the frame's sums. Returns
-    (h_data [N, 6, 6], g_data [N, 6], data_loss)."""
+def _normal_equation_rows(jac, residuals, ok, slot_nodes, n: int, tukey_cutoff: float | None = None,
+                          lump: bool = True):
+    """Robust weights (Tukey's with ``tukey_cutoff``, else 1), then the rows
+    the data term's per-node 6x6 blocks (lumped with ``lump``) and gradient
+    rows sum: ``jac`` is 6 tensors [P, 12], ``slot_nodes`` int[P, 12] the
+    node of each slot (-1 pad). Returns (rows f32[P * 12, 42]: the 36 block
+    products, then the 6 gradient entries; their segments int64[P * 12], n
+    for a dropped slot; weight [P]; residuals [P], masked)."""
     residuals = torch.where(ok, residuals, 0.0)
-    if config.use_tukey_penalty:
-        c_t = config.tukey_cutoff
+    if tukey_cutoff is not None:
+        c_t = tukey_cutoff
         tw = torch.where(torch.abs(residuals) < c_t, (1.0 - (residuals / c_t) ** 2) ** 2, 0.0)
     else:
         tw = torch.ones_like(residuals)
@@ -282,7 +287,7 @@ def _assemble_normal_equations(jac, residuals, ok, slot_nodes, config: FitterCon
     slot_ok = (flat_nodes >= 0) & (flat_w > 0)
     seg = torch.where(slot_ok, flat_nodes, n)  # segment n is dropped
     jflat = [jc.reshape(-1) for jc in jac]
-    if config.lump_data_hessian:
+    if lump:
         # |J_trans| of a (pixel, slot) is its blend weight: dividing one
         # power out lumps the block
         w_eff = torch.sqrt(jflat[3] ** 2 + jflat[4] ** 2 + jflat[5] ** 2)
@@ -297,14 +302,29 @@ def _assemble_normal_equations(jac, residuals, ok, slot_nodes, config: FitterCon
     gw = torch.where(slot_ok, flat_w * flat_r, 0.0)
     rows = [jsafe[a] * jsafe[b] * scale for a in range(6) for b in range(6)]
     rows += [-jc * gw for jc in jsafe]
-    if chain is None:
-        hg = segment_sum(torch.stack(rows, dim=-1), seg, n)
-    else:
-        hg = chain(seg, torch.stack(rows, dim=-1), n)
+    return torch.stack(rows, dim=-1), seg, weight, residuals
+
+
+def _sum_rows(rows, seg, weight, residuals, n: int, chain=None):
+    """The data term's normal equations from its rows: ``segment_sum`` of the
+    rows by node, or ``chain`` (a row shard's), which adds them after the
+    ranks before this one and returns the frame's sums. Returns (h_data
+    [N, 6, 6], g_data [N, 6], data_loss)."""
+    hg = segment_sum(rows, seg, n) if chain is None else chain(seg, rows, n)
     h_data = hg[:, :36].reshape(n, 6, 6)
     g_data = hg[:, 36:]
     data_loss = 0.5 * torch.sum(weight * residuals**2)
     return h_data, g_data, data_loss
+
+
+def _assemble_normal_equations(jac, residuals, ok, slot_nodes, config: FitterConfig, n: int, chain=None):
+    """:func:`_normal_equation_rows` under ``config`` summed by
+    :func:`_sum_rows`: (h_data [N, 6, 6], g_data [N, 6], data_loss)."""
+    rows = _normal_equation_rows(
+        jac, residuals, ok, slot_nodes, n, config.tukey_cutoff if config.use_tukey_penalty else None,
+        config.lump_data_hessian,
+    )
+    return _sum_rows(*rows, n, chain)
 
 
 class RowShard(NamedTuple):
@@ -335,48 +355,82 @@ def _pixel_grid(h: int, w: int, dev, row0: int = 0):
     return (lin % w).to(torch.float32), (lin // w + row0).to(torch.float32)
 
 
-def _data_term_face(
-    pos_v, rot_v, trans_v, canonical_vertices, canonical_normals, canonical_triangles,
-    pre: FacePrecompute, frag_faces, reference_points, reference_mask, intrinsics,
-    config: FitterConfig, num_nodes: int, shard: RowShard | None = None,
+def _face_rows_plain(
+    pos_v, rot_v, trans_v, canonical_vertices, canonical_normals, canonical_triangles, anchor_weights,
+    face_nodes, slot_of_vertex_anchor, frag_faces, reference_points, reference_mask, intrinsics, num_nodes: int,
+    idx=None, n_ok=None, row0: int = 0, tukey_cutoff: float | None = None, lump: bool = True,
 ):
-    """Face-major data term: per-(vertex, anchor) warp quantities once per
-    face, per-pixel stages on the compacted covered-pixel set. Returns
-    (h_data f32[N, 6, 6], g_data f32[N, 6], data_loss). With ``shard`` the
-    images are that slab's rows."""
+    """The face term's rows in plain PyTorch (the contract of
+    ``ops/face_data_rows.py::face_data_rows_cuda``): per-(vertex, anchor)
+    warp quantities once per face, per-pixel stages on the compacted pixels
+    ``idx`` (the first ``n_ok`` kept), or on every pixel when ``idx`` is
+    None. Returns :func:`_normal_equation_rows`'s (rows, seg, weight,
+    residuals)."""
     dev = canonical_vertices.device
     h, w = reference_mask.shape
     warped18_f, rot_off_f, rot_nrm_f, wgt_f, sid_f = _pair_tables(
-        canonical_triangles, pre.slot_of_vertex_anchor, pre.face_nodes, pre.weights,
+        canonical_triangles, slot_of_vertex_anchor, face_nodes, anchor_weights,
         pos_v, rot_v, trans_v, canonical_vertices, canonical_normals,
     )
-
-    # ---- covered-pixel compaction (the cap is the whole frame's)
-    row0 = shard.row0 if shard is not None else 0
     pix_face = frag_faces.reshape(-1).long()
-    pix_ok = (pix_face >= 0) & reference_mask.reshape(-1)
-    cap = compaction_cap((shard.height if shard is not None else h) * w, config.pixel_compaction_fraction)
-    if cap is not None:
-        size = min(cap, h * w)
-        idx, n_ok = compact_mask_indices(pix_ok, size, fill_value=0)
-        if shard is not None and shard.budget is not None:
-            n_ok = torch.minimum(n_ok, shard.budget)
-        ok = torch.arange(size, device=dev) < n_ok
+    if idx is not None:
+        ok = torch.arange(idx.shape[0], device=dev) < n_ok
         pface = torch.where(ok, pix_face[idx], 0)
         ref_pts = reference_points.reshape(-1, 3)[idx]
         px = (idx % w).to(torch.float32)
         py = (idx // w + row0).to(torch.float32)
     else:
-        ok = pix_ok
+        ok = (pix_face >= 0) & reference_mask.reshape(-1)
         pface = pix_face
         ref_pts = reference_points.reshape(-1, 3)
         px, py = _pixel_grid(h, w, dev, row0)
     safe_face = pface.clamp(min=0)
     residuals, grad18 = _stage1_value_and_grad(warped18_f[safe_face], px, py, ref_pts, intrinsics)
     jac = _chain_rule(grad18, rot_off_f[safe_face], rot_nrm_f[safe_face], wgt_f[safe_face], sid_f[safe_face])
-    return _assemble_normal_equations(
-        jac, residuals, ok, pre.face_nodes[safe_face], config, num_nodes, shard.chain if shard is not None else None
+    return _normal_equation_rows(jac, residuals, ok, face_nodes[safe_face], num_nodes, tukey_cutoff, lump)
+
+
+def _face_row_inputs(
+    pos_v, rot_v, trans_v, canonical_vertices, canonical_normals, canonical_triangles,
+    pre: FacePrecompute, frag_faces, reference_points, reference_mask, intrinsics,
+    config: FitterConfig, num_nodes: int, shard: RowShard | None = None,
+) -> tuple:
+    """The face term's arguments as its row functions (the kernel's and
+    :func:`_face_rows_plain`) take them, after the covered-pixel compaction
+    (the cap is the whole frame's): the compacted pixel ids and the count
+    kept, an int64 scalar tensor, or (None, None) without a cap."""
+    h, w = reference_mask.shape
+    cap = compaction_cap((shard.height if shard is not None else h) * w, config.pixel_compaction_fraction)
+    idx = n_ok = None
+    if cap is not None:
+        pix_ok = (frag_faces.reshape(-1) >= 0) & reference_mask.reshape(-1)
+        idx, n_ok = compact_mask_indices(pix_ok, min(cap, h * w), fill_value=0)
+        if shard is not None and shard.budget is not None:
+            n_ok = torch.minimum(n_ok, shard.budget)
+    return (
+        pos_v, rot_v, trans_v, canonical_vertices, canonical_normals, canonical_triangles, pre.weights,
+        pre.face_nodes, pre.slot_of_vertex_anchor, frag_faces, reference_points, reference_mask, intrinsics,
+        num_nodes, idx, n_ok, shard.row0 if shard is not None else 0,
+        config.tukey_cutoff if config.use_tukey_penalty else None, config.lump_data_hessian,
     )
+
+
+def _data_term_face(
+    pos_v, rot_v, trans_v, canonical_vertices, canonical_normals, canonical_triangles,
+    pre: FacePrecompute, frag_faces, reference_points, reference_mask, intrinsics,
+    config: FitterConfig, num_nodes: int, shard: RowShard | None = None,
+):
+    """Face-major data term on the compacted covered-pixel set: its rows from
+    the CUDA kernel (``ops/face_data_rows.py``) for card tensors, from
+    :func:`_face_rows_plain` for CPU tensors, the same bits either way, then
+    :func:`_sum_rows`. Returns (h_data f32[N, 6, 6], g_data f32[N, 6],
+    data_loss). With ``shard`` the images are that slab's rows."""
+    face_rows = _face_rows_plain if canonical_vertices.device.type == "cpu" else face_data_rows_cuda
+    rows = face_rows(*_face_row_inputs(
+        pos_v, rot_v, trans_v, canonical_vertices, canonical_normals, canonical_triangles, pre, frag_faces,
+        reference_points, reference_mask, intrinsics, config, num_nodes, shard,
+    ))
+    return _sum_rows(*rows, num_nodes, shard.chain if shard is not None else None)
 
 
 def _data_term_fast(

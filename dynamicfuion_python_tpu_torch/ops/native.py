@@ -9,7 +9,8 @@ rebuilt; ``build_kernels`` starts one ``nvcc`` per source, all at once.
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` raises when that is not 0. The wrapper
 that launches a kernel counts it in ``utils/trace.py``'s counters
-(``b1.launches`` for ``rasterize_tiles``, ``b2.launches`` for ``mesh_expand``).
+(``b1.launches`` for ``rasterize_tiles``, ``b2.launches`` for ``mesh_expand``,
+``face_rows.launches`` for ``face_data_rows``).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ _PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE / "_build"
 
-KERNELS = ("rasterize_tiles", "mesh_expand")
+KERNELS = ("rasterize_tiles", "mesh_expand", "face_data_rows")
 
 # --fmad=false keeps every multiply and add separately rounded, as the plain
 # PyTorch versions round them, so kernel and plain version agree bit for bit:

@@ -21,6 +21,7 @@ from dynamicfuion_python_tpu.ops.linalg import solve_block_sparse_arrowhead as j
 from dynamicfuion_python_tpu.ops.normals import mesh_vertex_normals as j_normals
 from dynamicfuion_python_tpu.settings import Parameters
 from dynamicfuion_python_tpu.utils.config import apply_overrides
+from dynamicfuion_python_tpu_torch.ops import native
 from dynamicfuion_python_tpu_torch.ops.normals import mesh_vertex_normals as p_normals
 from dynamicfuion_python_tpu_torch.utils.state_conversion import warp_field_from_numpy
 
@@ -147,6 +148,70 @@ def test_fit_to_image_other_data_terms(scene, impl):
     # test_fit_to_image's bounds: the surface normal tight, in-plane 1e-3
     np.testing.assert_allclose(pt[..., 2], wt[..., 2], atol=1e-5)
     np.testing.assert_allclose(pt[..., :2], wt[..., :2], atol=1e-3)
+
+
+def _face_term_before_its_kernel(
+    pos_v, rot_v, trans_v, canonical_vertices, canonical_normals, canonical_triangles,
+    pre, frag_faces, reference_points, reference_mask, intrinsics, config, num_nodes,
+):
+    """The face data term as the port computed it before its rows had a card
+    kernel: the plain functions composed in one body."""
+    dev = canonical_vertices.device
+    h, w = reference_mask.shape
+    warped18_f, rot_off_f, rot_nrm_f, wgt_f, sid_f = PF._pair_tables(
+        canonical_triangles, pre.slot_of_vertex_anchor, pre.face_nodes, pre.weights,
+        pos_v, rot_v, trans_v, canonical_vertices, canonical_normals,
+    )
+    pix_face = frag_faces.reshape(-1).long()
+    pix_ok = (pix_face >= 0) & reference_mask.reshape(-1)
+    cap = PF.compaction_cap(h * w, config.pixel_compaction_fraction)
+    if cap is not None:
+        size = min(cap, h * w)
+        idx, n_ok = PF.compact_mask_indices(pix_ok, size, fill_value=0)
+        ok = torch.arange(size, device=dev) < n_ok
+        pface = torch.where(ok, pix_face[idx], 0)
+        ref_pts = reference_points.reshape(-1, 3)[idx]
+        px = (idx % w).to(torch.float32)
+        py = (idx // w).to(torch.float32)
+    else:
+        ok = pix_ok
+        pface = pix_face
+        ref_pts = reference_points.reshape(-1, 3)
+        px, py = PF._pixel_grid(h, w, dev)
+    safe_face = pface.clamp(min=0)
+    residuals, grad18 = PF._stage1_value_and_grad(warped18_f[safe_face], px, py, ref_pts, intrinsics)
+    jac = PF._chain_rule(grad18, rot_off_f[safe_face], rot_nrm_f[safe_face], wgt_f[safe_face], sid_f[safe_face])
+    return PF._assemble_normal_equations(jac, residuals, ok, pre.face_nodes[safe_face], config, num_nodes)
+
+
+def test_face_term_on_the_cpu_is_bit_equal_to_its_plain_composition(scene, monkeypatch):
+    """On the scene's first GN inputs (64x96) the face term on CPU tensors
+    never reaches the kernels' library (ops/native.py) and returns the bits
+    of the plain functions composed as before the term's rows had a card
+    kernel: compacted, uncompacted, with Tukey weights, unlumped."""
+    s = scene
+    recorded = []
+    term = PF._DATA_TERMS["face"]
+    monkeypatch.setitem(PF._DATA_TERMS, "face", lambda *a, **k: recorded.append(a) or term(*a, **k))
+    pf = s["pf"]
+    verts, faces = _t(s["verts"]), _t(s["faces"])
+    pre = PF.precompute_face_associations(pf, verts, faces)
+    PF.gauss_newton_step(pf, verts, faces, p_normals(verts, faces), pre, _t(s["points"]), _t(s["mask"]), _t(s["k"]),
+                         s["pcfg"], PF.IterationMode.ALL, PF._max_wing_degree(pf))
+    monkeypatch.setitem(PF._DATA_TERMS, "face", term)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CPU face term reached ops/native.py")
+
+    monkeypatch.setattr(native, "entry_point", refuse)
+    (args,) = recorded
+    for kw in ({}, {"pixel_compaction_fraction": 0.0}, {"use_tukey_penalty": True, "tukey_cutoff": 0.005},
+               {"lump_data_hessian": False}):
+        config = dataclasses.replace(args[11], **kw)
+        got = PF._data_term_face(*args[:11], config, args[12])
+        want = _face_term_before_its_kernel(*args[:11], config, args[12])
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), kw
+        assert float(got[0].abs().max()) > 0
 
 
 # -- the three data terms (tests/test_fitter.py::TestFaceDataTermParity) -----

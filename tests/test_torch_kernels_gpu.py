@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels against their plain PyTorch versions, the
-segment sums' card forms against the CPU's ``index_add_``, the training
+"""The hand-written CUDA kernels (B1, B2 and the fitter's face data term rows)
+against their plain PyTorch versions, the segment sums' card forms against the CPU's ``index_add_``, the training
 step's backwards (gathers, flow upsampling, bilinear sampling, convolutions
 under ``fp32_step``) repeating bit for bit, and a frame's waits on the card
 all going through ``utils/trace.py``, on the card.
@@ -484,3 +484,173 @@ def test_a_frame_waits_on_the_card_only_through_the_trace_module(card, prior, tm
     assert not outside, f"synchronizing calls outside the trace module: {dict(outside)}"
     # torch.unique's wait is counted (``blocking``) but not reported by the card
     assert 0 < counted <= sum(waits.values()), (counted, waits)
+
+
+# -- the face data term's rows (csrc/face_data_rows.cu) ----------------------
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal values, NaN where the other has NaN (torch.equal with NaN)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _face_rows_both(args, shard=None):
+    """The face term's rows from the kernel and from the plain functions on
+    the same arguments (``fitter._data_term_face``'s), compacted as the
+    term compacts them."""
+    from dynamicfuion_python_tpu_torch.models import fitter
+    from dynamicfuion_python_tpu_torch.ops.face_data_rows import face_data_rows_cuda
+
+    call = fitter._face_row_inputs(*args[:13], shard)
+    return face_data_rows_cuda(*call), fitter._face_rows_plain(*call)
+
+
+def _record_face_terms(prior: bool, tmp_path, frames: int = 4, every: int = 5):
+    """Every ``every``-th call's arguments of the face data term over the
+    first ``frames`` fitted frames of the 480x640 slice (448x640 with the
+    neural prior on seeded DeformNet weights), on the card."""
+    from dynamicfuion_python_tpu_torch.apps.fusion_pipeline import FusionPipeline
+    from dynamicfuion_python_tpu_torch.apps.profile_frame import PRIOR_IMAGE_SIZE, SLICE_IMAGE_SIZE, make_slice
+    from dynamicfuion_python_tpu_torch.models import deform_net as dn
+    from dynamicfuion_python_tpu_torch.models import fitter
+    from dynamicfuion_python_tpu_torch.utils.config import apply_overrides
+
+    params, seq = make_slice(frames + 1, PRIOR_IMAGE_SIZE if prior else SLICE_IMAGE_SIZE)
+    if prior:
+        path = tmp_path / "deform_net.pt"
+        torch.save(dn.seeded_state_dict(dn.DeformNet(), torch.Generator().manual_seed(3)), path)
+        params = apply_overrides(params, ["fusion.use_neural_prior=true", f"fusion.prior_checkpoint={path}"])
+    recorded, calls = [], [0]
+    term = fitter._DATA_TERMS["face"]
+
+    def record(*args, **kwargs):
+        if calls[0] % every == 0:
+            recorded.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+        calls[0] += 1
+        return term(*args, **kwargs)
+
+    fitter._DATA_TERMS["face"] = record
+    try:
+        seq_frames = list(seq)
+        pipe = FusionPipeline(params, seq.intrinsics)
+        pipe.initialize(seq_frames[0].depth, seq_frames[0].color)
+        for f in seq_frames[1:]:
+            pipe.process_frame(f.depth, f.color)
+    finally:
+        fitter._DATA_TERMS["face"] = term
+    return recorded
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prior", [False, True], ids=["fusion480", "prior448"])
+def test_face_rows_kernel_is_bit_equal_on_the_main_path(card, prior, tmp_path):
+    """The kernel's rows, segments, weights and residuals, and the sums and
+    loss the term returns, equal the plain functions' on the GN inputs of
+    four fitted frames of the 480x640 slice (448x640 with the prior)."""
+    from dynamicfuion_python_tpu_torch.models import fitter
+
+    recorded = _record_face_terms(prior, tmp_path)
+    assert len(recorded) >= 4
+    for args in recorded:
+        got, want = _face_rows_both(args)
+        for g, w in zip(got, want):
+            assert _same(g, w)
+        assert bool(torch.isfinite(got[0]).all()) and int((got[1] < args[12]).sum()) > 0
+        sums = fitter._data_term_face(*args)
+        plain = fitter._sum_rows(*want, args[12])
+        assert all(torch.equal(a, b) for a, b in zip(sums, plain))
+
+
+# the synthetic cases: (name, compaction fraction, Tukey cutoff or None,
+# lumped blocks, a row shard (first row, budget) or None)
+FACE_ROW_CASES = {
+    "compacted": (0.6, None, True, None),  # covered > cap: every compacted pixel kept
+    "cap_below_cover": (0.1, None, True, None),
+    "every_pixel": (0.0, None, True, None),  # no compaction: masked rows read NaN points
+    "tukey": (0.6, 0.05, True, None),
+    "tukey_every_pixel": (0.0, 0.05, False, None),
+    "not_lumped": (0.6, None, False, None),
+    "shard": (0.6, None, True, (32, 300)),
+    "shard_every_pixel": (0.0, None, True, (32, None)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(FACE_ROW_CASES))
+def test_face_rows_kernel_is_bit_equal_on_edge_cases(card, case):
+    """Synthetic faces (tests/_face_rows_inputs.py): dropped anchors (fewer
+    than 12 distinct nodes), zero and near-zero area, corners at and below
+    the 1e-6 depth clamp, non-finite corners read only by masked rows, NaN
+    points outside the mask; compacted with the cap above and below the
+    covered count, uncompacted, Tukey weights, unlumped blocks, and a row
+    shard with its first row and budget: the kernel equals the plain
+    functions, NaN for NaN."""
+    from _face_rows_inputs import synthetic_face_inputs
+
+    from dynamicfuion_python_tpu_torch.models import fitter
+
+    frac, cutoff, lump, shard = FACE_ROW_CASES[case]
+    config = fitter.FitterConfig(pixel_compaction_fraction=frac, use_tukey_penalty=cutoff is not None,
+                                 tukey_cutoff=cutoff or 0.01, lump_data_hessian=lump)
+    args = [a.to(card) if isinstance(a, torch.Tensor) else fitter.FacePrecompute(*(t.to(card) for t in a))
+            for a in synthetic_face_inputs(5)]
+    row_shard = None
+    if shard is not None:
+        row0, budget = shard
+        h = args[7].shape[0]
+        args[7:10] = [t[row0:] for t in args[7:10]]
+        row_shard = fitter.RowShard(row0, h, None if budget is None else torch.tensor(budget, device=card))
+    args = (*args, config, args[0].shape[0])
+    got, want = _face_rows_both(args, row_shard)
+    for g, w in zip(got, want):
+        assert _same(g, w)
+    weight, seg = want[2], want[1]
+    assert (weight > 0).any() and bool((seg == args[12]).any())  # kept rows and dropped slots
+    assert bool(torch.isnan(want[0]).any())  # the degenerate faces reach kept rows
+
+
+@pytest.mark.gpu
+def test_face_rows_kernel_repeats_bit_for_bit(card, tmp_path):
+    """20 launches on one 480x640 GN input: the same bits every time."""
+    args = _record_face_terms(False, tmp_path, frames=1, every=100)[0]
+    first, _ = _face_rows_both(args)
+    for _ in range(19):
+        again, _ = _face_rows_both(args)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.gpu
+def test_fusion_loop_with_the_kernel_equals_the_plain_loop(card, monkeypatch):
+    """Five fitted frames of the 480x640 slice with the kernel, then with the
+    plain functions patched in its place: the same field, TSDF and mesh,
+    bit for bit; the kernel launched once per GN iteration run."""
+    from dynamicfuion_python_tpu_torch.apps.fusion_pipeline import FusionPipeline
+    from dynamicfuion_python_tpu_torch.apps.profile_frame import make_slice
+    from dynamicfuion_python_tpu_torch.models import fitter
+
+    params, seq = make_slice(6)
+    frames = list(seq)
+
+    def run():
+        pipe = FusionPipeline(params, seq.intrinsics)
+        pipe.initialize(frames[0].depth, frames[0].color)
+        for f in frames[1:]:
+            pipe.process_frame(f.depth, f.color)
+        field, volume = pipe.warp_field, pipe.volume
+        occupied = volume.occupied_mask()
+        return [field.node_positions, field.node_rotations, field.node_translations, volume.slot_keys,
+                volume.tsdf[occupied], volume.weight[occupied], pipe.canonical_vertices, pipe.canonical_triangles]
+
+    trace.reset()
+    with_kernel = run()
+    launches, iterations = trace.counter("face_rows.launches"), trace.counter("fit.gn_iterations")
+    assert launches == iterations > 0
+    monkeypatch.setattr(fitter, "face_data_rows_cuda", fitter._face_rows_plain)
+    plain = run()
+    assert trace.counter("face_rows.launches") == launches
+    trace.reset()
+    assert all(torch.equal(a, b) for a, b in zip(with_kernel, plain))
