@@ -99,9 +99,10 @@ non-zero, on any failure):
      of the backward, one traced step and the same step with TF32 left on
      (a control).
  15. sod: apps/sod.py's generate_masks with the reference's default model
-     (U2NET at full width, seeded weights, 320x320 input) over four 480x640
-     PNG colour frames in a temporary directory, TF32 turned on globally
-     beforehand: every mask written as uint8 480x640, forward hooks reading
+     (U2NET at full width, seeded weights, 320x320 input) over twenty 480x640
+     PNG colour frames in a temporary directory, in batches of 16 (one full,
+     one partial), TF32 turned on globally beforehand: every mask written as
+     uint8 480x640, one host read of masks a batch, forward hooks reading
      TF32 off for cuBLAS and cuDNN in every card forward, the fused output
      on the card equal to the CPU's within 1e-4, the weights through a Flax
      .npz and back bit for bit; ms per frame, the forward's event ms, peak
@@ -1760,7 +1761,9 @@ def phase_train(smi: str) -> dict:
 
 # salient-object detection: the reference's default model (U2NET, full
 # width) on seeded weights, at its 320x320 input, over 480x640 colour frames
-SOD_FRAMES = 4
+# in batches of 16: one full batch and a partial one
+SOD_FRAMES = 20
+SOD_BATCH = 16
 SOD_FRAME_SIZE = (480, 640)
 # the SPMD frame loop: two ranks on the one card (gloo on CUDA tensors), the
 # main path's slice for 3 fitted frames; a hung rank fails the phase
@@ -1810,8 +1813,9 @@ def _flatten(tree: dict, prefix: str = "") -> dict:
 
 
 def phase_sod() -> dict:
-    """generate_masks with the full U2NET over 480x640 PNG frames; the card's
-    fused output against the CPU's; the weights through an .npz and back."""
+    """generate_masks with the full U2NET over 480x640 PNG frames in batches
+    (one full, one partial); the card's fused output against the CPU's; the
+    weights through an .npz and back."""
     import numpy as np
     import torch
 
@@ -1823,31 +1827,24 @@ def phase_sod() -> dict:
         u2net_flax_from_state_dict,
     )
     from dynamicfuion_python_tpu_torch.models.u2net import U2Net, U2NetFull
+    from dynamicfuion_python_tpu_torch.utils import trace
     from dynamicfuion_python_tpu_torch.utils.telemetry import read_png
 
-    flags, marks, starts = [], [], []
+    flags, marks = [], []
 
     def before(module, args):
         if isinstance(module, U2Net) and args[0].is_cuda:
             flags.append((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32))
-            marks.append([torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)])
+            marks.append([torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True), args[0].shape[0]])
             marks[-1][0].record()
 
     def after(module, args, output):
         if isinstance(module, U2Net) and args[0].is_cuda:
             marks[-1][1].record()
 
-    load_color = sod.load_color
-
-    def timed_load(path):  # each frame starts with its read
-        torch.cuda.synchronize()
-        starts.append(time.perf_counter())
-        return load_color(path)
-
     hooks = [torch.nn.modules.module.register_module_forward_pre_hook(before),
              torch.nn.modules.module.register_module_forward_hook(after)]
-    sod.load_color = timed_load
-    # TF32 on globally: generate_masks must turn it off around its forward
+    # TF32 on globally: the loop must turn it off around its forward
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
     try:
         with tempfile.TemporaryDirectory() as tmp:
@@ -1856,22 +1853,22 @@ def phase_sod() -> dict:
             reset_counters()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            written = sod.generate_masks(tmp / "color", tmp / "sod", full_model=True)
+            written = sod.generate_masks(tmp / "color", tmp / "sod", full_model=True, batch_size=SOD_BATCH)
             torch.cuda.synchronize()
-            starts.append(time.perf_counter())
-            wall = starts[-1] - t0
+            wall = time.perf_counter() - t0
             launches = kernel_launches()
+            counters = trace.snapshot()["counters"]
             peak = torch.cuda.max_memory_allocated() / 2**20
             masks = [read_png(p) for p in written]
-            sod.load_color = load_color
             use_fp32_matmuls()
             # the card's fused output against the CPU's on the first frame
-            x = sod.preprocess(load_color(tmp / "color" / "000000.png"), (320, 320))
+            rgb = torch.as_tensor(sod.load_color(tmp / "color" / "000000.png"))[None]
+            x = sod.preprocess(rgb, (320, 320))
             card, cpu = sod.build_model(full_model=True), sod.build_model(full_model=True, device="cpu")
             with torch.no_grad(), fp32_step():
-                fused_card = card(torch.as_tensor(x, device="cuda"))[0].cpu()
+                fused_card = card(x.cuda())[0].cpu()
             with torch.no_grad():
-                fused_cpu = cpu(torch.as_tensor(x))[0]
+                fused_cpu = cpu(x)[0]
             err = float((fused_card - fused_cpu).abs().max())
             # the weights as Flax variables in an .npz, and back
             state = {k: v.cpu() for k, v in card.state_dict().items()}
@@ -1880,20 +1877,19 @@ def phase_sod() -> dict:
             load_u2net_checkpoint(back, tmp / "u2net.npz")
             round_trip = all(torch.equal(v, state[k]) for k, v in back.state_dict().items())
     finally:
-        sod.load_color = load_color
         for h in hooks:
             h.remove()
         use_fp32_matmuls()
     torch.cuda.synchronize()
-    forward_ms = [a.elapsed_time(b) for a, b in marks]
-    frame_ms = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+    batches = -(-SOD_FRAMES // SOD_BATCH)
+    loop = marks[:batches]  # the loop's forwards; the card-vs-CPU forward after them
     row = {
         "phase": "sod", "model": "U2NET", "frames": len(written), "frame_size": list(SOD_FRAME_SIZE),
-        "input_size": [320, 320], "parameters": sum(v.numel() for v in state.values()),
-        "wall_s": wall, "frame_ms": frame_ms, "steady_frame_ms": float(np.median(frame_ms[1:])),
-        "forward_event_ms": forward_ms[:SOD_FRAMES], "steady_forward_event_ms": float(np.median(forward_ms[1:SOD_FRAMES])),
+        "batch_size": SOD_BATCH, "input_size": [320, 320], "parameters": sum(v.numel() for v in state.values()),
+        "wall_s": wall, "frame_ms": wall * 1e3 / len(written),
+        "forward_event_ms": [a.elapsed_time(b) for a, b, _ in loop], "forward_batch": [n for _, _, n in loop],
         "fused_card_vs_cpu": err, "tf32_flags_in_forward": sorted(set(flags)), "npz_round_trip": round_trip,
-        "launches": launches, "peak_mem_mib": peak,
+        "counters": {k: v for k, v in counters.items() if "sod" in k}, "launches": launches, "peak_mem_mib": peak,
         "mask_mean_grey": [float(m.mean()) for m in masks],
     }
     emit(row)
@@ -1901,6 +1897,10 @@ def phase_sod() -> dict:
           f"sod: masks {[(m.dtype, m.shape) for m in masks]}")
     check(all(m.max() > m.min() for m in masks), "sod: a constant mask")
     check(set(flags) == {(False, False)}, f"sod: the card's forward ran with TF32 flags {sorted(set(flags))}")
+    check(row["forward_batch"] == [SOD_BATCH] * (SOD_FRAMES // SOD_BATCH) + [SOD_FRAMES % SOD_BATCH],
+          f"sod: forwards of {row['forward_batch']} frames")
+    check(counters.get("host_read.sod.masks") == counters.get("sod.batches") == batches
+          and counters.get("sod.frames") == SOD_FRAMES, f"sod: counters {row['counters']}")
     check(err <= 1e-4, f"sod: fused output differs card vs CPU by {err}")
     check(round_trip, "sod: the weights changed through the .npz")
     return launches

@@ -8,16 +8,20 @@ only when one is read. The three resizes give Pillow's results:
 :func:`resize_bicubic` are ``Image.resize(..., BILINEAR / BICUBIC)`` on
 8-bit images (a triangle / Keys cubic filter widened by the reduction
 factor, fixed-point weights, the horizontal pass first, each pass clipped
-to 0..255).
+to 0..255). :func:`resize_images` is the same 8-bit resampler on a batch
+of uint8 tensors on any device, bit-equal to the numpy form.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from pathlib import Path
 
 import numpy as np
+import torch
 
+from dynamicfuion_python_tpu_torch.utils import trace
 from dynamicfuion_python_tpu_torch.utils.telemetry import read_png
 
 _PRECISION_BITS = 32 - 8 - 2
@@ -110,9 +114,11 @@ def _cubic(x: float) -> float:
 _FILTERS = {"bilinear": (_triangle, 1.0), "bicubic": (_cubic, 2.0)}
 
 
+@functools.lru_cache(maxsize=64)
 def _coefficients(in_size: int, out_size: int, kind: str) -> tuple[np.ndarray, np.ndarray]:
     """Per output pixel: the first source index and the fixed-point weights
-    of its taps, zero-padded to a common length ([out], [out, taps])."""
+    of its taps, zero-padded to a common length ([out], [out, taps]).
+    Cached by (in, out, kind): the arrays are shared, so read-only."""
     filt, filter_support = _FILTERS[kind]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
@@ -135,6 +141,7 @@ def _coefficients(in_size: int, out_size: int, kind: str) -> tuple[np.ndarray, n
         weights[xx, :xmax] = [
             int(-0.5 + v * (1 << _PRECISION_BITS)) if v < 0 else int(0.5 + v * (1 << _PRECISION_BITS)) for v in k
         ]
+    starts.flags.writeable = weights.flags.writeable = False
     return starts, weights
 
 
@@ -170,3 +177,40 @@ def resize_bicubic(image: np.ndarray, size_hw: tuple[int, int]) -> np.ndarray:
     Pillow's bicubic resampling (antialiased when reducing), the default of
     ``Image.resize`` for RGB and L images."""
     return _resize_8bit(image, size_hw, "bicubic")
+
+
+@functools.lru_cache(maxsize=64)
+def _weight_matrix(in_size: int, out_size: int, kind: str, device: torch.device) -> torch.Tensor:
+    """The fixed-point taps of :func:`_coefficients` as a dense f64 [in,
+    out] matrix on ``device``, uploaded once per sizes and device."""
+    starts, weights = _coefficients(in_size, out_size, kind)
+    dense = np.zeros((in_size, out_size), np.float64)
+    rows = starts[:, None] + np.arange(weights.shape[1])
+    taps = weights != 0  # a zero tap may lie past the image's edge
+    dense[rows[taps], np.nonzero(taps)[0]] = weights[taps]
+    return trace.upload(dense, device, "resize.weights")
+
+
+def _resample_last(images: torch.Tensor, out_size: int, kind: str) -> torch.Tensor:
+    """One pass over the last axis of f64 ``images`` that hold 0..255, as
+    :func:`_resample_axis0` computes it. Each product of a pixel and a
+    fixed-point weight is an integer under 2**31 and their sums stay under
+    2**53, so the f64 matrix product is exact in any order of summation."""
+    acc = images @ _weight_matrix(images.shape[-1], out_size, kind, images.device)
+    return torch.floor((acc + (1 << (_PRECISION_BITS - 1))) * 2.0**-_PRECISION_BITS).clamp_(0, 255)
+
+
+def resize_images(images: torch.Tensor, size_hw: tuple[int, int], kind: str = "bicubic") -> torch.Tensor:
+    """uint8 ``images`` [B, H, W, C] resized to ``size_hw`` by Pillow's
+    ``kind`` ("bicubic" or "bilinear") resampling, on their device:
+    :func:`resize_bicubic` / :func:`resize_bilinear` of each image, bit for
+    bit (the horizontal pass first, each pass clipped to 0..255)."""
+    if images.dtype != torch.uint8 or images.ndim != 4:
+        raise ValueError(f"resize_images takes uint8 [B, H, W, C] images, got {images.dtype} {tuple(images.shape)}")
+    h, w = size_hw
+    out = images.permute(0, 3, 1, 2).to(torch.float64)  # [B, C, H, W]
+    if w != images.shape[2]:
+        out = _resample_last(out, w, kind)
+    if h != images.shape[1]:
+        out = _resample_last(out.transpose(2, 3), h, kind).transpose(2, 3)
+    return out.to(torch.uint8).permute(0, 2, 3, 1).contiguous()

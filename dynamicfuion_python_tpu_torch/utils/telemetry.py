@@ -76,9 +76,10 @@ def _write_ply(path, verts, faces):
         f.write(face_block.tobytes())
 
 
-def write_png(path: str | Path, image) -> None:
+def write_png(path: str | Path, image, compress_level: int = 6) -> None:
     """Write uint8 [H, W, 3] (RGB), uint8 [H, W] or uint16 [H, W] (grey) as a
-    PNG: one IDAT chunk, every row with filter 0, default zlib level."""
+    PNG: one IDAT chunk, every row with filter 0, zlib at ``compress_level``
+    (1 fastest .. 9 smallest; 6, zlib's and Pillow's default)."""
     a = np.asarray(image)
     if a.dtype == np.uint8 and a.ndim == 3 and a.shape[2] == 3:
         bit_depth, color_type = 8, 2
@@ -95,7 +96,8 @@ def write_png(path: str | Path, image) -> None:
 
     header = struct.pack(">IIBBBBB", w, h, bit_depth, color_type, 0, 0, 0)
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header) + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header) + chunk(b"IDAT", zlib.compress(raw, compress_level))
+                + chunk(b"IEND", b""))
 
 
 _PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # grey, RGB, grey + alpha, RGBA

@@ -18,9 +18,10 @@ profiler it lies on the profiler's timeline beside the device rows
 Counters (:func:`count`) are plain integers and always on. The host's waits
 on the device are counted by site, always: :func:`host_read` reads a tensor
 into a Python scalar (``host_read.<site>``), :func:`blocking` wraps an
-operator that reads a size from the device inside (``host_read.<site>``),
-and :func:`upload` copies host data to the device from pageable memory,
-which waits for the stream as a read does (``host_write.<site>``). With
+operator that reads a size from the device inside, or a copy back to the
+host (``host_read.<site>``), and :func:`upload` copies host data to the
+device from pageable memory, which waits for the stream as a read does
+(``host_write.<site>``). With
 spans on, each wait is also a span under its counter's name.
 
 The registry is one per process: :func:`reset` clears spans and counters.
@@ -124,7 +125,8 @@ def host_read(tensor: torch.Tensor, site: str):
 
 def blocking(site: str):
     """A context around an operator whose output size the host reads from
-    the device inside it (``torch.unique``). Counted as ``host_read.<site>``."""
+    the device inside it (``torch.unique``), or a copy of a tensor back to
+    the host (``.cpu()``). Counted as ``host_read.<site>``."""
     key = "host_read." + site
     _counters[key] = _counters.get(key, 0) + 1
     return _OpenSpan(key) if _on else _NO_SPAN
@@ -212,20 +214,29 @@ def read_profile(events) -> dict:
     device = sorted((e for e in events if _is_device(e) and not e.name.startswith(PREFIX)),
                     key=lambda e: e.time_range.start)
     starts = [e.time_range.start for e in device]
+    # a span's device-side range may come as several rows that overlap (the
+    # profiler gave a U2NET forward's range twice, the second inside the
+    # first): each span name's rows are merged, so a kernel counts once
+    ranges: dict[str, list[list[float]]] = {}
+    for r in sorted((r for r in events if _is_device(r) and r.name.startswith(PREFIX)),
+                    key=lambda r: r.time_range.start):
+        merged = ranges.setdefault(r.name[len(PREFIX):], [])
+        if merged and r.time_range.start <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], r.time_range.end)
+        else:
+            merged.append([r.time_range.start, r.time_range.end])
     device_us: dict[str, float] = {}
     launches: dict[str, int] = {}
-    for r in events:
-        if not (_is_device(r) and r.name.startswith(PREFIX)):
-            continue
-        name, lo, hi = r.name[len(PREFIX):], r.time_range.start, r.time_range.end
-        i = bisect.bisect_left(starts, lo)
-        while i < len(device) and device[i].time_range.start <= hi:
-            e = device[i]
-            if e.time_range.end <= hi:
-                device_us[name] = device_us.get(name, 0.0) + (e.time_range.end - e.time_range.start)
-                if not e.name.startswith(("Memcpy", "Memset")):
-                    launches[name] = launches.get(name, 0) + 1
-            i += 1
+    for name, rows in ranges.items():
+        for lo, hi in rows:
+            i = bisect.bisect_left(starts, lo)
+            while i < len(device) and device[i].time_range.start <= hi:
+                e = device[i]
+                if e.time_range.end <= hi:
+                    device_us[name] = device_us.get(name, 0.0) + (e.time_range.end - e.time_range.start)
+                    if not e.name.startswith(("Memcpy", "Memset")):
+                        launches[name] = launches.get(name, 0) + 1
+                i += 1
     host = sorted((e for e in events if not _is_device(e) and e.name.startswith(PREFIX)),
                   key=lambda e: e.time_range.start)
     idle_us: dict[str, float] = {}

@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels (B1, B2 and the fitter's face data term rows)
 against their plain PyTorch versions, the segment sums' card forms against the CPU's ``index_add_``, the training
 step's backwards (gathers, flow upsampling, bilinear sampling, convolutions
-under ``fp32_step``) repeating bit for bit, and a frame's waits on the card
-all going through ``utils/trace.py``, on the card.
+under ``fp32_step``) repeating bit for bit, a frame's waits on the card
+all going through ``utils/trace.py``, and the SOD loop's resampler and
+batched U2NET forward, on the card.
 Every test here needs a CUDA device and skips without one; the file
 imports nothing of JAX, so it runs on a machine that has only PyTorch:
 
@@ -654,3 +655,66 @@ def test_fusion_loop_with_the_kernel_equals_the_plain_loop(card, monkeypatch):
     assert trace.counter("face_rows.launches") == launches
     trace.reset()
     assert all(torch.equal(a, b) for a, b in zip(with_kernel, plain))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("channels", [3, 1], ids=["RGB", "L"])
+@pytest.mark.parametrize("shape, size", [((480, 640), (320, 320)), ((320, 320), (480, 640)), ((37, 53), (20, 71))],
+                         ids=["down", "up", "odd"])
+def test_resize_images_on_the_card_equals_numpy(card, channels, shape, size):
+    from dynamicfuion_python_tpu_torch.data.images import resize_bicubic, resize_images
+
+    rng = np.random.default_rng(30)
+    images = rng.integers(0, 256, size=(4, *shape, channels), dtype=np.uint8)
+    images[1, :, ::2] = 255
+    images[1, :, 1::2] = 0
+    got = resize_images(torch.as_tensor(images, device=card), size).cpu().numpy()
+    for image, g in zip(images, got):
+        want = resize_bicubic(image if channels == 3 else image[..., 0], size)
+        np.testing.assert_array_equal(g if channels == 3 else g[..., 0], want)
+
+
+@pytest.mark.gpu
+def test_batched_u2net_forward_runs_without_tf32(card, tmp_path):
+    """The SOD loop's batched U2NET forward on the card, with TF32 turned on
+    globally beforehand: every convolution runs with TF32 off, and the fused
+    output of two frames of the batch agrees with the CPU's within 1e-4."""
+    from dynamicfuion_python_tpu_torch.apps import sod
+    from dynamicfuion_python_tpu_torch.models.u2net import U2NetFull, seeded_state_dict
+    from dynamicfuion_python_tpu_torch.utils.telemetry import write_png
+
+    rng = np.random.default_rng(31)
+    frames = []
+    for i in range(5):
+        frames.append(tmp_path / "color" / f"{i:06d}.png")
+        frames[-1].parent.mkdir(exist_ok=True)
+        write_png(frames[-1], rng.integers(0, 256, size=(480, 640, 3), dtype=np.uint8))
+    cpu = U2NetFull()
+    cpu.load_state_dict(seeded_state_dict(cpu, torch.Generator().manual_seed(32)))
+    cpu.eval()
+    model = U2NetFull()
+    model.load_state_dict(cpu.state_dict())
+    model.to(card).eval()
+    flags, seen = set(), []
+
+    def before(module, args):
+        if isinstance(module, torch.nn.Conv2d):
+            flags.add((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32))
+
+    hooks = [m.register_forward_pre_hook(before) for m in model.modules()]
+    hooks.append(model.register_forward_hook(lambda m, args, out: seen.append((args[0].cpu(), out[0].cpu()))))
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    trace.reset()
+    try:
+        written = sod.masks_for_frames(model, frames, tmp_path / "sod", batch_size=4)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        for h in hooks:
+            h.remove()
+    assert flags == {(False, False)}
+    assert len(written) == 5 and [x.shape[0] for x, _ in seen] == [4, 1]
+    assert trace.counter("host_read.sod.masks") == trace.counter("sod.batches") == 2
+    x, fused = seen[0]
+    with torch.no_grad():
+        want = cpu(x[[0, 3]])[0]
+    assert float((fused[[0, 3]] - want).abs().max()) <= 1e-4

@@ -9,7 +9,11 @@
 - ``generate_masks`` end to end on two 48x40 frames at 64x64 against the
   JAX app's masks from the same checkpoint, within one grey level, and the
   checkpoint formats (.pth, "/"-flattened .npz, Flax msgpack);
-- ``resize_bicubic`` bit-equal to Pillow's BICUBIC on uint8.
+- ``resize_bicubic`` bit-equal to Pillow's BICUBIC on uint8, and the
+  tensor resampler ``resize_images`` bit-equal to ``resize_bicubic``;
+- the batched SOD loop (``masks_for_frames``) against the benchmark's plain
+  reference of the frame-by-frame path (``portbench/reference``) on seeded
+  weights, and its counters.
 """
 
 import numpy as np
@@ -21,7 +25,7 @@ from PIL import Image
 
 import dynamicfuion_python_tpu.models.u2net as JU
 import dynamicfuion_python_tpu_torch.models.u2net as PU
-from dynamicfuion_python_tpu_torch.data.images import resize_bicubic
+from dynamicfuion_python_tpu_torch.data.images import resize_bicubic, resize_images
 from dynamicfuion_python_tpu_torch.models.torch_weight_conversion import (
     load_u2net_checkpoint,
     u2net_flax_from_state_dict,
@@ -161,3 +165,65 @@ def test_resize_bicubic_equals_pillow(mode, size):
     np.testing.assert_array_equal(resize_bicubic(img, size), want)
     # Image.resize's default filter for these modes is BICUBIC
     np.testing.assert_array_equal(np.asarray(Image.fromarray(img, mode).resize(size[::-1])), want)
+
+
+@pytest.mark.parametrize("mode", ["RGB", "L"])
+@pytest.mark.parametrize("shape, size", [((480, 640), (320, 320)), ((320, 320), (480, 640)), ((37, 53), (20, 71)),
+                                         ((17, 9), (40, 5))])
+def test_resize_images_equals_resize_bicubic(mode, shape, size):
+    rng = np.random.default_rng(12)
+    channels = 3 if mode == "RGB" else 1
+    images = rng.integers(0, 256, size=(2, *shape, channels), dtype=np.uint8)
+    images[1, :, ::2] = 255  # stripes of 0 and 255: the filter's lobes clip
+    images[1, :, 1::2] = 0
+    got = resize_images(torch.as_tensor(images), size).numpy()
+    for image, g in zip(images, got):
+        want = resize_bicubic(image if mode == "RGB" else image[..., 0], size)
+        np.testing.assert_array_equal(g if mode == "RGB" else g[..., 0], want)
+
+
+# the port's batched forward against the reference's at batch 1, both FP32 on
+# the CPU: the convolutions may pick other algorithms for another batch size,
+# so the outputs may round apart; sigmoid outputs of a 4/8-channel network
+# move by a few ulps of 1
+BATCH_ATOL = 1e-6
+
+
+def test_batched_sod_matches_the_frame_by_frame_reference(tmp_path):
+    from dynamicfuion_python_tpu_torch.apps import sod
+    from dynamicfuion_python_tpu_torch.utils import trace
+    from dynamicfuion_python_tpu_torch.utils.telemetry import read_png
+    from portbench.reference.apps import sod as reference_sod
+    from portbench.reference.models.u2net import U2NetLite as ReferenceLite
+
+    frames = tmp_path / "color"
+    _write_frames(frames, 5, size=(64, 96))
+    model = PU.U2NetLite(mid=4, out=8)
+    model.load_state_dict(PU.seeded_state_dict(model, torch.Generator().manual_seed(21)))
+    model.eval()
+    reference = ReferenceLite(mid=4, out=8)
+    reference.load_state_dict(model.state_dict())
+    reference.eval()
+    seen = []
+    hook = model.register_forward_hook(lambda m, args, out: seen.append((args[0], out)))
+    trace.reset()
+    try:
+        written = sod.masks_for_frames(model, sorted(frames.iterdir()), tmp_path / "sod", batch_size=3)
+    finally:
+        hook.remove()
+    counters = trace.snapshot()["counters"]
+    assert [p.name for p in written] == [f"{i:06d}.png" for i in range(5)]
+    assert [x.shape[0] for x, _ in seen] == [3, 2]  # the partial last batch runs as it is
+    assert counters["host_read.sod.masks"] == counters["sod.batches"] == counters["host_write.sod.frames"] == 2
+    assert counters["sod.frames"] == 5
+    x = torch.cat([x for x, _ in seen])
+    outputs = [torch.cat([out[i] for _, out in seen])[:, 0] for i in range(7)]
+    for n, path in enumerate(written):
+        rgb = sod.load_color(frames / path.name)
+        x_ref, probs_ref = reference_sod.frame_outputs(reference, rgb, (320, 320))
+        np.testing.assert_array_equal(x[n].numpy(), x_ref)
+        for got, want in zip(outputs, probs_ref):
+            np.testing.assert_allclose(got[n].numpy(), want, rtol=0, atol=BATCH_ATOL)
+        mask = reference_sod.mask_from_probability(outputs[0][n].numpy(), rgb.shape[:2], None)
+        np.testing.assert_array_equal(read_png(path), mask)
+        assert mask.max() > mask.min()

@@ -207,3 +207,18 @@ def test_read_profile_on_a_hand_made_timeline():
     assert got["device_ms"] == {"fit": 0.058, "fit.data_term": 0.048}
     assert got["launches"] == {"fit": 2, "fit.data_term": 1}
     assert got["idle_ms"] == {"none": 0.03, "fit": 0.02, "fit.data_term": 0.01}
+
+
+def test_read_profile_counts_a_kernel_once_under_a_repeated_range():
+    """The profiler may give one span's device-side range as several rows
+    (a U2NET forward's range came twice on the card, the second inside the
+    first): the kernels under them count once; a later range of the same
+    name that does not overlap counts on its own."""
+    p = trace.PREFIX
+    events = [
+        _evt(p + "sod.forward", 0, 100), _evt(p + "sod.forward", 40, 80), _evt(p + "sod.forward", 200, 260),
+        _evt("conv", 0, 50), _evt("conv", 50, 100), _evt("conv", 200, 260),
+    ]
+    got = trace.read_profile(events)
+    assert got["device_ms"] == {"sod.forward": 0.16}
+    assert got["launches"] == {"sod.forward": 3}
