@@ -24,10 +24,15 @@ non-zero, on any failure):
      bit), timed with CUDA events and the profiler beside its bound (counted
      from those inputs) and, for B1 and B2, an empty kernel's launch floor
      on the kernel's own grid;
-  4. odometry: rigid_odometry_multi_scale on the card, under
+  4. odometry: rigid_odometry_multi_scale on the card, its CUDA graph's
+     replay and the eager call both under
      torch.cuda.set_sync_debug_mode("error"), on the main path's last depth
      pair and on a 480x640 wavy surface moved by a known rotation and
-     translation; the card must equal the CPU and recover the motion;
+     translation; the replay must equal the eager call bit for bit, the
+     card the CPU, and the motion be recovered; on the main path's pair the
+     replay and the eager call are timed side by side (host ms to issue a
+     call, device ms of its kernels, CUDA-event ms) and a new key's graph's
+     reserved memory is read;
   5. entry point: the CLI runs 4 frames of the slice with telemetry, and
      run_fusion resumes from a checkpoint to the full run's result;
   6. reference: a small 3-frame scene (odometry on frame 2) through the
@@ -664,11 +669,43 @@ def wavy_motion_scene(height: int = 480, width: int = 640):
     return source, torch.as_tensor(target.astype(np.uint16).astype(np.int32)), k, motion
 
 
-def phase_odometry(odometry_call):
-    """Rigid odometry on the card: sync-free, equal to the CPU, and right on
-    a known motion."""
+def eager_odometry(*args, **kwargs):
+    """``rigid_odometry_multi_scale`` as the CPU and process groups run it:
+    op by op, no CUDA graph."""
+    from dynamicfuion_python_tpu_torch.ops import rigid_odometry
+
+    replays = rigid_odometry._replays
+    rigid_odometry._replays = lambda device, group: False
+    try:
+        return rigid_odometry.rigid_odometry_multi_scale(*args, **kwargs)
+    finally:
+        rigid_odometry._replays = replays
+
+
+def host_and_device_ms(fn, iters: int = 10) -> dict:
+    """Per call of ``fn`` (warmed up): the host's ms to issue it (no
+    synchronisation inside the loop), the device ms of its kernels (one
+    traced call) and the CUDA-event ms a call."""
     import torch
 
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return {"host_ms": host_ms, "device_ms": traced(fn)["device_ms"], "event_ms": cuda_time_ms(fn, iters, warmup=1)}
+
+
+def phase_odometry(odometry_call):
+    """Rigid odometry on the card: sync-free, its CUDA graph's replay equal
+    to the eager call bit for bit, equal to the CPU, and right on a known
+    motion; at 480x640 the replay and the eager call timed side by side,
+    and the memory a new key's graph reserves."""
+    import torch
+
+    from dynamicfuion_python_tpu_torch.ops import rigid_odometry
     from dynamicfuion_python_tpu_torch.ops.rigid_odometry import rigid_odometry_multi_scale
 
     source, target, k, motion = wavy_motion_scene()
@@ -680,12 +717,16 @@ def phase_odometry(odometry_call):
     out = {"phase": "odometry"}
     for name, (args, kwargs) in cases.items():
         card_args = [a.cuda() for a in args]
+        rigid_odometry_multi_scale(*card_args, **kwargs)  # captures the key's graph if it is new
         torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")  # any host sync in the call raises
+        torch.cuda.set_sync_debug_mode("error")  # any host sync in either call raises
         try:
             card_t, card_rmse = rigid_odometry_multi_scale(*card_args, **kwargs)
+            eager_t, eager_rmse = eager_odometry(*card_args, **kwargs)
         finally:
             torch.cuda.set_sync_debug_mode("default")
+        check(torch.equal(card_t, eager_t) and torch.equal(card_rmse, eager_rmse),
+              f"odometry {name}: the graph's replay differs from the eager call")
         cpu_t, cpu_rmse = rigid_odometry_multi_scale(*[a.cpu() for a in args], **kwargs)
         err_t = float((card_t.cpu() - cpu_t).abs().max())
         err_rmse = abs(float(card_rmse) - float(cpu_rmse))
@@ -693,7 +734,7 @@ def phase_odometry(odometry_call):
               f"odometry {name}: card differs from the CPU (transform {err_t}, rmse {err_rmse})")
         ms = cuda_time_ms(lambda: rigid_odometry_multi_scale(*card_args, **kwargs), 10, warmup=2)
         row = {"transform_card_vs_cpu": err_t, "rmse_card_vs_cpu": err_rmse, "rmse": float(card_rmse),
-               "ms_per_call": ms, **pose_summary(card_t)}
+               "replay_bit_equal_to_eager": True, "ms_per_call": ms, **pose_summary(card_t)}
         if name.startswith("wavy"):
             got = card_t.cpu()
             row["rotation_err"] = float((got[:3, :3] - motion[:3, :3]).abs().max())
@@ -702,6 +743,21 @@ def phase_odometry(odometry_call):
             # 2e-3 m on the translation
             check(row["rotation_err"] <= 3e-3 and row["translation_err"] <= 2e-3,
                   f"odometry {name}: motion not recovered ({row['rotation_err']}, {row['translation_err']})")
+        else:
+            row["replay"] = host_and_device_ms(lambda: rigid_odometry_multi_scale(*card_args, **kwargs))
+            row["eager"] = host_and_device_ms(lambda: eager_odometry(*card_args, **kwargs))
+            # the key captured anew, alone in the cache: its private pool's
+            # segments are what the capture reserved
+            kept = rigid_odometry._GRAPHS
+            rigid_odometry._GRAPHS = {}
+            try:
+                rigid_odometry_multi_scale(*card_args, **kwargs)
+                (graph,) = rigid_odometry._GRAPHS.values()
+                pool = tuple(graph.graph.pool())
+                row["graph_reserved_mib"] = sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                                                if tuple(s.get("segment_pool_id", ())) == pool) / 2**20
+            finally:
+                rigid_odometry._GRAPHS = kept
         out[name] = row
     emit(out)
 

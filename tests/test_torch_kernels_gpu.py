@@ -2,8 +2,9 @@
 against their plain PyTorch versions, the segment sums' card forms against the CPU's ``index_add_``, the training
 step's backwards (gathers, flow upsampling, bilinear sampling, convolutions
 under ``fp32_step``) repeating bit for bit, a frame's waits on the card
-all going through ``utils/trace.py``, and the SOD loop's resampler and
-batched U2NET forward, on the card.
+all going through ``utils/trace.py``, the SOD loop's resampler and
+batched U2NET forward, and the rigid odometry's CUDA graph against its
+eager loop, on the card.
 Every test here needs a CUDA device and skips without one; the file
 imports nothing of JAX, so it runs on a machine that has only PyTorch:
 
@@ -718,3 +719,123 @@ def test_batched_u2net_forward_runs_without_tf32(card, tmp_path):
     with torch.no_grad():
         want = cpu(x[[0, 3]])[0]
     assert float((fused[[0, 3]] - want).abs().max()) <= 1e-4
+
+
+# -- rigid odometry as one CUDA graph (ops/rigid_odometry.py) ---------------
+
+
+def _odometry_pairs(size, pairs: int):
+    """``pairs`` successive depth pairs of the slice at ``size`` on the card,
+    with its intrinsics and the pipeline's odometry settings."""
+    from dynamicfuion_python_tpu_torch.apps.profile_frame import make_slice
+
+    params, seq = make_slice(pairs + 1, size)
+    depths = [torch.as_tensor(np.asarray(f.depth).astype(np.int32), device="cuda") for f in seq]
+    intrinsics = torch.as_tensor(np.asarray(seq.intrinsics), dtype=torch.float32, device="cuda")
+    settings = dict(depth_scale=params.fusion.depth_scale, depth_max=params.fusion.far_clip_distance)
+    return [(depths[i], depths[i + 1], intrinsics) for i in range(pairs)], settings
+
+
+def _eager_odometry(args, settings):
+    """The call as the CPU and process groups run it: op by op."""
+    from dynamicfuion_python_tpu_torch.ops import rigid_odometry as ro
+
+    return ro._odometry(*args, None, **{**dict(levels=(4, 2, 1), iterations_per_level=10, distance_threshold=0.07),
+                                        **settings})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [(480, 640), (448, 640)], ids=["480x640", "448x640"])
+def test_odometry_replay_equals_the_eager_loop(card, size, monkeypatch):
+    """Seven successive frame pairs of the slice: the first call runs eagerly
+    and captures, the six after it replay on new inputs; every pose and
+    rmse equals the eager loop's bit for bit."""
+    from dynamicfuion_python_tpu_torch.ops import rigid_odometry as ro
+
+    monkeypatch.setattr(ro, "_GRAPHS", {})
+    pairs, settings = _odometry_pairs(size, 7)
+    trace.reset()
+    for args in pairs:
+        got = ro.rigid_odometry_multi_scale(*args, **settings)
+        want = _eager_odometry(args, settings)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not torch.equal(got[0], torch.eye(4, device=card))  # the camera moved
+    counters = trace.snapshot()["counters"]
+    trace.reset()
+    assert (counters["odometry.eager"], counters["odometry.graph_captures"], counters["odometry.graph_replays"]) == \
+        (1, 1, 6)
+
+
+@pytest.mark.gpu
+def test_odometry_captures_a_graph_per_key(card, monkeypatch):
+    """Another ``depth_max``, another shape and a start transform each
+    capture their own graph, and each replay equals its eager call."""
+    from dynamicfuion_python_tpu_torch.ops import rigid_odometry as ro
+
+    monkeypatch.setattr(ro, "_GRAPHS", {})
+    (args, again), settings = _odometry_pairs(SIZE, 2)
+    start = torch.eye(4, device=card)
+    start[:3, 3] = torch.tensor([0.001, -0.002, 0.0], device=card)
+    crop = tuple(t[:240] for t in args[:2]) + args[2:]
+    calls = [(args, settings, None), (args, {**settings, "depth_max": 2.0}, None), (crop, settings, None),
+             (args, settings, start)]
+    for n, (a, s, t0) in enumerate(calls, 1):
+        ro.rigid_odometry_multi_scale(*a, t0, **s)
+        assert len(ro._GRAPHS) == n
+    for (a, s, t0), b in zip(calls, [again, again, tuple(t[:240] for t in again[:2]) + again[2:], again]):
+        got = ro.rigid_odometry_multi_scale(*b, t0, **s)
+        want = ro._odometry(*b, t0, **{**dict(levels=(4, 2, 1), iterations_per_level=10, distance_threshold=0.07),
+                                        **s})
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert len(ro._GRAPHS) == 4
+
+
+@pytest.mark.gpu
+def test_a_returned_odometry_pose_outlives_the_next_replay(card, monkeypatch):
+    """The pose and rmse a replay returns are the caller's: the next call's
+    replay on other inputs leaves them as they were."""
+    from dynamicfuion_python_tpu_torch.ops import rigid_odometry as ro
+
+    monkeypatch.setattr(ro, "_GRAPHS", {})
+    pairs, settings = _odometry_pairs(SIZE, 3)
+    ro.rigid_odometry_multi_scale(*pairs[0], **settings)
+    pose, rmse = ro.rigid_odometry_multi_scale(*pairs[1], **settings)
+    kept = pose.clone(), rmse.clone()
+    nxt = ro.rigid_odometry_multi_scale(*pairs[2], **settings)
+    assert not torch.equal(nxt[0], pose)
+    assert torch.equal(pose, kept[0]) and torch.equal(rmse, kept[1])
+
+
+@pytest.mark.gpu
+def test_fusion_loop_with_the_odometry_graph_equals_the_eager_loop(card, monkeypatch):
+    """Six frames of the 480x640 slice with the odometry replayed, then with
+    the eager odometry forced: the same poses, node transforms and TSDF,
+    bit for bit."""
+    from dynamicfuion_python_tpu_torch.apps.fusion_pipeline import FusionPipeline
+    from dynamicfuion_python_tpu_torch.apps.profile_frame import make_slice
+    from dynamicfuion_python_tpu_torch.ops import rigid_odometry as ro
+
+    params, seq = make_slice(7)
+    frames = list(seq)
+
+    def run():
+        pipe = FusionPipeline(params, seq.intrinsics)
+        pipe.initialize(frames[0].depth, frames[0].color)
+        poses = []
+        for f in frames[1:]:
+            pipe.process_frame(f.depth, f.color)
+            poses.append(pipe.extrinsics.clone())
+        field, volume = pipe.warp_field, pipe.volume
+        occupied = volume.occupied_mask()
+        return [*poses, field.node_positions, field.node_rotations, field.node_translations, volume.slot_keys,
+                volume.tsdf[occupied], volume.weight[occupied]]
+
+    monkeypatch.setattr(ro, "_GRAPHS", {})
+    trace.reset()
+    graphed = run()
+    assert trace.counter("odometry.graph_replays") == 4 and trace.counter("odometry.eager") == 1
+    monkeypatch.setattr(ro, "_replays", lambda device, group: False)
+    eager = run()
+    assert trace.counter("odometry.graph_replays") == 4 and trace.counter("odometry.eager") == 6
+    trace.reset()
+    assert all(torch.equal(a, b) for a, b in zip(graphed, eager))

@@ -152,3 +152,84 @@ def test_result_independent_of_the_thread_count(threads):
         finally:
             torch.set_num_threads(default)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# -- the CUDA graph path's choice and key (the replay itself: gpu tests) -----
+
+
+def test_cpu_calls_run_eagerly(monkeypatch):
+    """CPU tensors take the eager path, count ``odometry.eager`` and give the
+    eager loop's result; nothing is captured."""
+    from dynamicfuion_python_tpu_torch.utils import trace
+
+    monkeypatch.setattr(P, "_GRAPHS", {})
+    source, target = _t(_wavy_depth()), _t(_wavy_depth(0.01))
+    before = trace.snapshot()["counters"]
+    got = P.rigid_odometry_multi_scale(source, target, torch.as_tensor(INTR))
+    after = trace.snapshot()["counters"]
+    want = P._odometry(source, target, torch.as_tensor(INTR), None, (4, 2, 1), 10, 1000.0, 3.0, 0.07)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert after.get("odometry.eager", 0) == before.get("odometry.eager", 0) + 1
+    for name in ("odometry.graph_captures", "odometry.graph_replays"):
+        assert after.get(name, 0) == before.get(name, 0)
+    assert P._GRAPHS == {}
+
+
+def test_a_process_group_never_reaches_the_graph(monkeypatch):
+    """With a group the call runs eagerly on any device, its all_reduce
+    outside any graph: the choice, and a one-rank stub group on CPU tensors
+    whose sums pass through, giving the ungrouped result."""
+    from dynamicfuion_python_tpu_torch.parallel import spmd
+
+    cuda = torch.device("cuda")
+    assert P._replays(cuda, None) and not P._replays(cuda, object())
+    assert not P._replays(torch.device("cpu"), None)
+    reduced = []
+    monkeypatch.setattr(spmd, "row_range", lambda height, group: (0, height))
+    monkeypatch.setattr(spmd, "all_reduce_sum", lambda tensors, group: reduced.append(group) or list(tensors))
+    monkeypatch.setattr(P, "_GRAPHS", {})
+    args = (_t(_wavy_depth()), _t(_wavy_depth(0.01)), torch.as_tensor(INTR))
+    stub = object()
+    got = P.rigid_odometry_multi_scale(*args, group=stub)
+    want = P.rigid_odometry_multi_scale(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert reduced and all(g is stub for g in reduced) and P._GRAPHS == {}
+
+
+_KEY_ARGS = dict(levels=(4, 2, 1), iterations_per_level=10, depth_scale=1000.0, depth_max=3.0,
+                 distance_threshold=0.07)
+_KEY_CHANGES = {
+    "shape": lambda a, s: ((a[0][:60], a[1][:60], *a[2:]), s),
+    "dtype": lambda a, s: ((a[0].float(), a[1].float(), *a[2:]), s),
+    "levels": lambda a, s: (a, {**s, "levels": (2, 1)}),
+    "iterations_per_level": lambda a, s: (a, {**s, "iterations_per_level": 5}),
+    "depth_scale": lambda a, s: (a, {**s, "depth_scale": 5000.0}),
+    "depth_max": lambda a, s: (a, {**s, "depth_max": 2.0}),
+    "distance_threshold": lambda a, s: (a, {**s, "distance_threshold": 0.05}),
+    "initial_transform": lambda a, s: ((*a[:3], torch.eye(4)), s),
+}
+
+
+@pytest.mark.parametrize("change", [*_KEY_CHANGES, "tf32", "matmul_precision"])
+def test_graph_key_changes_with_what_the_capture_depends_on(change):
+    """Each of shape, dtype, levels, iterations, depth scale, depth cut-off,
+    distance threshold, the presence of a start transform and the TF32
+    settings gives another key; new values in the same tensors do not."""
+    args = (_t(_wavy_depth()), _t(_wavy_depth(0.01)), torch.as_tensor(INTR), None)
+    key = P._graph_key(*args, **_KEY_ARGS)
+    assert P._graph_key(_t(_wavy_depth(0.02)), _t(_wavy_depth()), torch.as_tensor(INTR) * 2, None,
+                        **_KEY_ARGS) == key
+    if change in _KEY_CHANGES:
+        changed_args, changed_settings = _KEY_CHANGES[change](args, _KEY_ARGS)
+        assert P._graph_key(*changed_args, **changed_settings) != key
+        return
+    tf32, precision = torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()
+    try:
+        if change == "tf32":
+            torch.backends.cuda.matmul.allow_tf32 = not tf32
+        else:
+            torch.set_float32_matmul_precision("medium" if precision != "medium" else "highest")
+        assert P._graph_key(*args, **_KEY_ARGS) != key
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.set_float32_matmul_precision(precision)
